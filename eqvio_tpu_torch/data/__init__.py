@@ -1,0 +1,16 @@
+from .asl import ASLDatasetReader, CameraInfo, GroundTruth, ImageSeq, IMUSeq
+from .server import DataServer, Measurement, create_dataset_reader
+from .synthetic import SyntheticASLReader, bench_scene
+
+__all__ = [
+    "ASLDatasetReader",
+    "CameraInfo",
+    "DataServer",
+    "GroundTruth",
+    "IMUSeq",
+    "ImageSeq",
+    "Measurement",
+    "SyntheticASLReader",
+    "bench_scene",
+    "create_dataset_reader",
+]

@@ -1,0 +1,613 @@
+"""The EqF filter core (counterpart of the main-path subset of
+``eqvio_tpu/filter.py``): settings, fast-Riccati propagation with the fused
+discrete-velocity observer, the square-root Kailath vision update with the
+landmark-lifecycle surgery folded in, and health checks.
+
+The main path runs in square-root covariance mode: ``EqFState.Sigma`` holds
+a lower factor L with Sigma = L L^T, maintained by QR re-triangularisation,
+and ``propagate_window(wide_factor=True)`` hands the un-triangularised
+Riccati stack to the update's pre-array so a frame costs ONE QR.
+
+Not ported yet (``ROADMAP.md`` queue 1, "other filter modes"): the accurate
+(matrix-exponential) and discrete Riccati steps, dense covariance, and the
+continuous velocity lift.  Settings that select them raise
+``NotImplementedError``.
+
+Slot protocol: tracker and filter share slot indices; a slot reused under a
+different id is lost + new.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+
+from .group import (
+    VIOGroup,
+    group_element_between,
+    group_exp,
+    group_has_nan,
+    group_identity,
+    group_mul,
+    group_normalize,
+    state_action,
+)
+from .lie import SE3, so3_from_vectors
+from .matrices import CoordinateSuite, get_suite
+from .states import IMU, SENSOR_DIM, VIOState, integrate_system, measure_system, state_identity
+
+_NOT_PORTED = "is not ported yet (ROADMAP.md queue 1, 'other filter modes')"
+
+
+@dataclasses.dataclass(frozen=True)
+class Settings:
+    """EqF settings; field names and defaults match ``eqvio_tpu.filter.Settings``."""
+
+    bias_omega_process_var: float = 0.001
+    bias_accel_process_var: float = 0.001
+    attitude_process_var: float = 0.001
+    position_process_var: float = 0.001
+    velocity_process_var: float = 0.001
+    camera_attitude_process_var: float = 0.001
+    camera_position_process_var: float = 0.001
+    point_process_var: float = 0.001
+
+    vel_gyr_noise: float = 1e-4
+    vel_acc_noise: float = 1e-3
+    vel_gyr_bias_walk: float = 1e-5
+    vel_acc_bias_walk: float = 1e-3
+
+    measurement_noise: float = 2.0
+    outlier_threshold_abs: float = 1e8
+    outlier_threshold_prob: float = 1e8
+    feature_retention: float = 0.3
+
+    initial_attitude_var: float = 1e-4
+    initial_position_var: float = 1e-4
+    initial_velocity_var: float = 1e-2
+    initial_camera_attitude_var: float = 1e-5
+    initial_camera_position_var: float = 1e-4
+    initial_point_var: float = 1.0
+    initial_point_depth_var: float = -1.0
+    initial_bias_omega_var: float = 0.1
+    initial_bias_accel_var: float = 0.1
+    initial_scene_depth: float = 1.0
+
+    use_discrete_innovation_lift: bool = True
+    use_discrete_velocity_lift: bool = True
+    use_discrete_state_matrix: bool = False
+    use_accurate_riccati: bool = False
+    fast_riccati: bool = False
+    use_median_depth: bool = True
+    use_feature_predictions: bool = False
+    use_equivariant_output: bool = True
+    remove_lost_landmarks: bool = True
+    coordinate_choice: str = "euclid"
+    sqrt_covariance: bool = False
+
+    camera_offset_quat: tuple = (1.0, 0.0, 0.0, 0.0)  # (w, x, y, z)
+    camera_offset_pos: tuple = (0.0, 0.0, 0.0)
+
+    @property
+    def suite(self) -> CoordinateSuite:
+        return get_suite(self.coordinate_choice)
+
+    def camera_offset_se3(self, dtype: torch.dtype, device) -> SE3:
+        w, x, y, z = self.camera_offset_quat
+        n = (w * w + x * x + y * y + z * z) ** 0.5
+        w, x, y, z = w / n, x / n, y / n, z / n
+        R = torch.tensor(
+            [
+                [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+                [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+                [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+            ],
+            dtype=dtype,
+            device=device,
+        )
+        return SE3(R, torch.tensor(self.camera_offset_pos, dtype=dtype, device=device))
+
+    def initial_sensor_cov_diag(self, dtype: torch.dtype, device) -> torch.Tensor:
+        vals = (
+            [self.initial_bias_omega_var] * 3
+            + [self.initial_bias_accel_var] * 3
+            + [self.initial_attitude_var] * 3
+            + [self.initial_position_var] * 3
+            + [self.initial_velocity_var] * 3
+            + [self.initial_camera_attitude_var] * 3
+            + [self.initial_camera_position_var] * 3
+        )
+        return torch.tensor(vals, dtype=dtype, device=device)
+
+    def initial_point_cov_diag(self, dtype: torch.dtype, device) -> torch.Tensor:
+        d = [self.initial_point_var] * 3
+        if self.initial_point_depth_var > 0:
+            d[2] = self.initial_point_depth_var
+        return torch.tensor(d, dtype=dtype, device=device)
+
+    def state_gain_diag(self, capacity: int, dtype: torch.dtype, device) -> torch.Tensor:
+        vals = (
+            [self.bias_omega_process_var] * 3
+            + [self.bias_accel_process_var] * 3
+            + [self.attitude_process_var] * 3
+            + [self.position_process_var] * 3
+            + [self.velocity_process_var] * 3
+            + [self.camera_attitude_process_var] * 3
+            + [self.camera_position_process_var] * 3
+            + [self.point_process_var] * 3 * capacity
+        )
+        return torch.tensor(vals, dtype=dtype, device=device)
+
+    def input_gain_diag(self, dtype: torch.dtype, device) -> torch.Tensor:
+        vals = (
+            [self.vel_gyr_noise**2] * 3
+            + [self.vel_acc_noise**2] * 3
+            + [self.vel_gyr_bias_walk**2] * 3
+            + [self.vel_acc_bias_walk**2] * 3
+        )
+        return torch.tensor(vals, dtype=dtype, device=device)
+
+
+class EqFState(NamedTuple):
+    xi0: VIOState  # fixed origin configuration
+    X: VIOGroup  # observer group element
+    Sigma: torch.Tensor  # lower factor [D, D] (or the wide stack [D, W] mid-frame)
+    t: torch.Tensor  # filter time, 0-dim
+
+
+def _require_sqrt(settings: Settings, what: str) -> None:
+    if not settings.sqrt_covariance:
+        raise NotImplementedError(f"dense covariance ({what}) {_NOT_PORTED}")
+
+
+def _mask_vec(xi0: VIOState) -> torch.Tensor:
+    """[D]: 1 on sensor and active landmark coordinates, 0 on inactive slots."""
+    lm = xi0.mask.to(xi0.landmarks.dtype).repeat_interleave(3)
+    return torch.cat([torch.ones(SENSOR_DIM, dtype=lm.dtype, device=lm.device), lm])
+
+
+def tria(M: torch.Tensor) -> torch.Tensor:
+    """Lower-triangularise: L with ``L L^T = M M^T`` and a nonnegative diagonal.
+
+    One QR of ``M^T``; the diagonal sign normalisation makes the factor
+    unique, so it does not depend on the QR library's sign convention.
+    """
+    R = torch.linalg.qr(M.T, mode="r").R
+    L = R.T
+    sign = torch.sign(torch.diagonal(L))
+    sign = torch.where(sign == 0, torch.ones_like(sign), sign)
+    return L * sign[None, :]
+
+
+def _sqrt_mask_reset(L: torch.Tensor, keep_vec: torch.Tensor, add_diag: torch.Tensor) -> torch.Tensor:
+    """Factor of ``diag(keep) (L L^T) diag(keep) + diag(add_diag)``."""
+    return tria(torch.cat([L * keep_vec[:, None], torch.diag(torch.sqrt(add_diag))], dim=1))
+
+
+def sanitize_sigma(Sigma: torch.Tensor, xi0: VIOState, settings: Settings) -> torch.Tensor:
+    """Zero inactive rows/cols and reset their diagonal to the initial point variance."""
+    _require_sqrt(settings, "sanitize_sigma")
+    mv_ = _mask_vec(xi0)
+    return _sqrt_mask_reset(Sigma, mv_, (1.0 - mv_) * settings.initial_point_var)
+
+
+def dense_sigma(state: EqFState) -> torch.Tensor:
+    """The covariance ``L L^T`` from the square-root state."""
+    return state.Sigma @ state.Sigma.T
+
+
+def init_state(settings: Settings, capacity: int, dtype: torch.dtype, device) -> EqFState:
+    _require_sqrt(settings, "init_state")
+    xi0 = state_identity(capacity, dtype, device)
+    xi0 = xi0._replace(
+        sensor=xi0.sensor._replace(camera_offset=settings.camera_offset_se3(dtype, device))
+    )
+    diag = torch.cat(
+        [
+            settings.initial_sensor_cov_diag(dtype, device),
+            settings.initial_point_cov_diag(dtype, device).repeat(capacity),
+        ]
+    )
+    return EqFState(
+        xi0=xi0,
+        X=group_identity(capacity, dtype, device),
+        Sigma=torch.diag(torch.sqrt(diag)),
+        t=torch.tensor(-1.0, dtype=dtype, device=device),
+    )
+
+
+def initialize_attitude_from_imu(state: EqFState, imu: IMU) -> EqFState:
+    """Gravity-aligned attitude initialisation from one IMU sample."""
+    acc_dir = imu.acc / torch.clamp(torch.linalg.norm(imu.acc, dim=-1, keepdim=True), min=1e-9)
+    e3 = torch.zeros_like(acc_dir)
+    e3[..., 2] = 1.0
+    R0 = so3_from_vectors(acc_dir, e3)
+    xi0 = state.xi0._replace(
+        sensor=state.xi0.sensor._replace(pose=SE3(R0, state.xi0.sensor.pose.x))
+    )
+    return state._replace(xi0=xi0, t=imu.stamp.to(state.t.dtype))
+
+
+def state_estimate(state: EqFState) -> VIOState:
+    """phi_X(xi0)."""
+    return state_action(state.X, state.xi0)
+
+
+# ---------------------------------------------------------------------------
+# Propagation
+# ---------------------------------------------------------------------------
+
+
+def _sqrt_riccati_stack(state: EqFState, A_exp, Bt, dt, settings: Settings) -> torch.Tensor:
+    """Wide factor S with ``S S^T = mask (A Sigma A^T + dt (B q B^T + P)) mask + pad``.
+
+    Width ``Wc + 12 + D``; the process-noise and pad diagonals share one
+    block because their masks are disjoint.
+    """
+    dtype, device = state.Sigma.dtype, state.Sigma.device
+    dt_pos = torch.clamp(torch.as_tensor(dt, dtype=dtype, device=device), min=0.0)
+    mv_ = _mask_vec(state.xi0)
+    q_sqrt = torch.sqrt(settings.input_gain_diag(dtype, device))
+    p_diag = settings.state_gain_diag(state.xi0.capacity, dtype, device) * mv_
+    pad = (1.0 - mv_) * settings.initial_point_var
+    return torch.cat(
+        [
+            (A_exp @ state.Sigma) * mv_[:, None],
+            torch.sqrt(dt_pos) * (Bt * q_sqrt[None, :]) * mv_[:, None],
+            torch.diag(torch.sqrt(dt_pos * p_diag + pad)),
+        ],
+        dim=1,
+    )
+
+
+def integrate_riccati_fast(
+    state: EqFState, imu: IMU, dt, settings: Settings, suite: CoordinateSuite, wide: bool = False
+) -> EqFState:
+    """Euler Riccati step in square-root form.
+
+    ``wide=True`` stores the un-triangularised stack in ``Sigma`` (exact:
+    only the factor's Gram matters); the frame's update QR squares it again.
+    """
+    _require_sqrt(settings, "integrate_riccati_fast")
+    D = state.xi0.dim()
+    dtype, device = state.Sigma.dtype, state.Sigma.device
+    A0t = suite.state_matrix_A(state.X, state.xi0, imu)
+    Bt = suite.input_matrix_B(state.X, state.xi0)
+    A_exp = torch.eye(D, dtype=dtype, device=device) + dt * A0t
+    S = _sqrt_riccati_stack(state, A_exp, Bt, dt, settings)
+    if wide:
+        return state._replace(Sigma=S)
+    # zero-dt steps are exact no-ops: keep the incoming factor
+    dt_t = torch.as_tensor(dt, dtype=dtype, device=device)
+    return state._replace(Sigma=torch.where(dt_t > 0, tria(S), state.Sigma))
+
+
+def _imu_at(imu: IMU, k: int) -> IMU:
+    return IMU(imu.stamp[k], imu.gyr[k], imu.acc[k], imu.gyr_bias_vel[k], imu.acc_bias_vel[k])
+
+
+def propagate_window(
+    state: EqFState,
+    imu_window: IMU,
+    dts: torch.Tensor,
+    settings: Settings,
+    suite: CoordinateSuite | None = None,
+    wide_factor: bool = False,
+) -> EqFState:
+    """Propagate over a padded IMU window ``[K]`` with per-sample dt.
+
+    Fast Riccati: one Riccati step on the time-weighted mean IMU, then the
+    fused observer: integrate the estimate over the window (a Python loop in
+    place of ``lax.scan``) and apply ONE exact group element.  Zero-dt pad
+    entries are exact no-ops.  ``wide_factor=True`` leaves ``Sigma`` as the
+    wide Riccati stack for the following :func:`process_vision`.
+    """
+    if suite is None:
+        suite = settings.suite
+    if not settings.fast_riccati or settings.use_discrete_state_matrix:
+        raise NotImplementedError(f"per-sample (accurate/discrete) Riccati {_NOT_PORTED}")
+    if not settings.use_discrete_velocity_lift:
+        raise NotImplementedError(f"the continuous velocity lift {_NOT_PORTED}")
+    wide = wide_factor and settings.sqrt_covariance
+
+    total = torch.clamp(torch.sum(dts), min=1e-9)
+    weight = (dts / total)[:, None]
+    mean_imu = IMU(
+        stamp=torch.max(imu_window.stamp),
+        gyr=torch.sum(imu_window.gyr * weight, dim=0),
+        acc=torch.sum(imu_window.acc * weight, dim=0),
+        gyr_bias_vel=torch.sum(imu_window.gyr_bias_vel * weight, dim=0),
+        acc_bias_vel=torch.sum(imu_window.acc_bias_vel * weight, dim=0),
+    )
+    state = integrate_riccati_fast(state, mean_imu, total, settings, suite, wide=wide)
+
+    xi_hat0 = state_estimate(state)
+    xi = xi_hat0
+    for k in range(dts.shape[0]):
+        xi = integrate_system(xi, _imu_at(imu_window, k), dts[k])
+    L = group_element_between(xi_hat0, xi)
+    state = state._replace(X=group_normalize(group_mul(state.X, L)))
+    return state._replace(t=torch.maximum(state.t, torch.max(imu_window.stamp).to(state.t.dtype)))
+
+
+# ---------------------------------------------------------------------------
+# Vision update
+# ---------------------------------------------------------------------------
+
+
+def update_vision(
+    state: EqFState,
+    pixels: torch.Tensor,
+    vis_mask: torch.Tensor,
+    camera,
+    settings: Settings,
+    suite: CoordinateSuite | None = None,
+    surgery: tuple[torch.Tensor, torch.Tensor] | None = None,
+) -> EqFState:
+    """Masked square-root EqF update: one QR of the Kailath pre-array
+    ``[[R^1/2, C W], [0, W]]``.
+
+    ``surgery=(keep_vec, add_diag)`` runs the update against
+    ``diag(keep) Sigma diag(keep) + diag(add)`` by widening ``W`` to
+    ``[keep o L, diag(sqrt(add))]``; the post-array factor is then already
+    the clean factor of the sanitized posterior.
+    """
+    _require_sqrt(settings, "update_vision")
+    if suite is None:
+        suite = settings.suite
+    xi0, X, L = state.xi0, state.X, state.Sigma
+    N = xi0.capacity
+    D = xi0.dim()
+    dtype, device = L.dtype, L.device
+
+    active = (xi0.mask & vis_mask).to(dtype)
+    y_hat, _ = measure_system(state_action(X, xi0), camera)
+    resid = (pixels - y_hat) * active[:, None]
+
+    if settings.use_equivariant_output:
+        C = suite.output_Ci_star(xi0.landmarks, X.Q, camera, pixels)
+    else:
+        C = suite.output_Ci(xi0.landmarks, X.Q, camera)
+    C = C * active[:, None, None]
+    act2 = active.repeat_interleave(2) > 0
+    r_diag = torch.where(
+        act2,
+        torch.full_like(active.repeat_interleave(2), settings.measurement_noise**2),
+        torch.ones_like(active.repeat_interleave(2)),
+    )
+
+    m = 2 * N
+    if surgery is not None:
+        keep_vec, add_diag = surgery
+        W = torch.cat([L * keep_vec[:, None], torch.diag(torch.sqrt(add_diag))], dim=1)
+    else:
+        W = L
+    Wc = W.shape[1]
+    CW = torch.einsum("iax,ixd->iad", C, W[SENSOR_DIM:].reshape(N, 3, Wc)).reshape(m, Wc)
+    pre = torch.zeros(m + D, m + Wc, dtype=dtype, device=device)
+    pre[:m, :m] = torch.diag(torch.sqrt(r_diag))
+    pre[:m, m:] = CW
+    pre[m:, m:] = W
+    post = tria(pre)
+    S_half = post[:m, :m]
+    Kbar = post[m:, :m]
+    L_new = post[m:, m:]
+    Gamma = Kbar @ torch.linalg.solve_triangular(
+        S_half, resid.reshape(-1, 1), upper=False
+    ).squeeze(-1)
+
+    if settings.use_discrete_innovation_lift:
+        Delta = suite.lift_innovation_discrete(Gamma, xi0)
+    else:
+        Delta = group_exp(suite.lift_innovation(Gamma, xi0))
+    X_new = group_normalize(group_mul(Delta, X))
+    if surgery is None:
+        L_new = sanitize_sigma(L_new, xi0, settings)
+    return state._replace(X=X_new, Sigma=L_new)
+
+
+# ---------------------------------------------------------------------------
+# Landmark lifecycle
+# ---------------------------------------------------------------------------
+
+
+def _eye_like_Q(state: EqFState) -> torch.Tensor:
+    return torch.eye(3, dtype=state.X.Q.R.dtype, device=state.X.Q.R.device).expand_as(state.X.Q.R)
+
+
+def remove_landmarks(state: EqFState, rm_mask: torch.Tensor, settings: Settings) -> EqFState:
+    """Deactivate slots: mask off, identity Q, dummy origin point, reset covariance."""
+    keep = state.xi0.mask & ~rm_mask
+    dtype, device = state.xi0.landmarks.dtype, state.xi0.landmarks.device
+    dummy = torch.tensor([0.0, 0.0, 1.0], dtype=dtype, device=device)
+    xi0 = state.xi0._replace(
+        landmarks=torch.where(keep[:, None], state.xi0.landmarks, dummy),
+        ids=torch.where(keep, state.xi0.ids, torch.full_like(state.xi0.ids, -1)),
+        mask=keep,
+    )
+    Q = state.X.Q._replace(
+        R=torch.where(keep[:, None, None], state.X.Q.R, _eye_like_Q(state)),
+        a=torch.where(keep, state.X.Q.a, torch.ones_like(state.X.Q.a)),
+    )
+    return state._replace(
+        xi0=xi0, X=state.X._replace(Q=Q), Sigma=sanitize_sigma(state.Sigma, xi0, settings)
+    )
+
+
+def median_scene_depth(state: EqFState, settings: Settings, mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Masked median depth of the current estimate."""
+    xi_hat = state_estimate(state)
+    if mask is None:
+        mask = xi_hat.mask
+    d2 = torch.sum(xi_hat.landmarks**2, dim=-1)
+    d2_sorted = torch.sort(torch.where(mask, d2, torch.full_like(d2, 1e30))).values
+    n_active = torch.sum(mask)
+    idx = torch.clamp(n_active // 2, 0, xi_hat.capacity - 1)
+    med = torch.sqrt(d2_sorted[idx])
+    return torch.where(n_active > 0, med, torch.full_like(med, settings.initial_scene_depth))
+
+
+def add_landmarks(
+    state: EqFState,
+    pixels: torch.Tensor,
+    new_mask: torch.Tensor,
+    new_ids: torch.Tensor,
+    camera,
+    settings: Settings,
+) -> EqFState:
+    """Initialise new slots from undistorted bearings at the median (or fixed)
+    scene depth, with identity Q and the initial point variance."""
+    dtype, device = state.xi0.landmarks.dtype, state.xi0.landmarks.device
+    if settings.use_median_depth:
+        depth = median_scene_depth(state, settings)
+    else:
+        depth = torch.tensor(settings.initial_scene_depth, dtype=dtype, device=device)
+    q_new = camera.undistort(pixels) * depth
+    xi0 = state.xi0._replace(
+        landmarks=torch.where(new_mask[:, None], q_new, state.xi0.landmarks),
+        ids=torch.where(new_mask, new_ids, state.xi0.ids),
+        mask=state.xi0.mask | new_mask,
+    )
+    Q = state.X.Q._replace(
+        R=torch.where(new_mask[:, None, None], _eye_like_Q(state), state.X.Q.R),
+        a=torch.where(new_mask, torch.ones_like(state.X.Q.a), state.X.Q.a),
+    )
+    zeros = torch.zeros(SENSOR_DIM, dtype=dtype, device=device)
+    full_new = torch.cat([zeros, new_mask.to(dtype).repeat_interleave(3)])
+    pdiag = torch.cat(
+        [zeros, settings.initial_point_cov_diag(dtype, device).repeat(state.xi0.capacity)]
+    )
+    _require_sqrt(settings, "add_landmarks")
+    Sigma = _sqrt_mask_reset(state.Sigma, 1.0 - full_new, full_new * pdiag)
+    return state._replace(xi0=xi0, X=state.X._replace(Q=Q), Sigma=Sigma)
+
+
+def outlier_mask(
+    state: EqFState,
+    pixels: torch.Tensor,
+    vis_mask: torch.Tensor,
+    camera,
+    settings: Settings,
+    suite: CoordinateSuite | None = None,
+) -> torch.Tensor:
+    """Two-stage ranked outlier rejection: absolute-pixel outliers rank above
+    Mahalanobis outliers; at most ``(1 - retention) * M`` are discarded."""
+    _require_sqrt(settings, "outlier_mask")
+    if suite is None:
+        suite = settings.suite
+    xi0, X, L = state.xi0, state.X, state.Sigma
+    N = xi0.capacity
+    dtype = L.dtype
+    tracked = xi0.mask & vis_mask
+
+    y_hat, _ = measure_system(state_estimate(state), camera)
+    resid = pixels - y_hat
+    err_abs = torch.linalg.norm(resid, dim=-1)
+    abs_out = tracked & (err_abs > settings.outlier_threshold_abs)
+
+    C0 = suite.output_Ci(xi0.landmarks, X.Q, camera)
+    L_lm = L[SENSOR_DIM:].reshape(N, 3, -1)
+    lm_diag = torch.einsum("nxd,nyd->nxy", L_lm, L_lm)
+    out_cov = C0 @ lm_diag @ C0.transpose(-1, -2)
+    out_cov = out_cov + torch.eye(2, dtype=dtype, device=L.device) * 1e-12
+    a, b = out_cov[:, 0, 0], out_cov[:, 0, 1]
+    c, d = out_cov[:, 1, 0], out_cov[:, 1, 1]
+    det = a * d - b * c
+    sol = torch.stack(
+        [d * resid[:, 0] - b * resid[:, 1], -c * resid[:, 0] + a * resid[:, 1]], dim=-1
+    ) / det[:, None]
+    err_prob = torch.sum(resid * sol, dim=-1)
+    prob_out = tracked & ~abs_out & (err_prob > settings.outlier_threshold_prob)
+
+    proposed = abs_out | prob_out
+    neg_inf = torch.full_like(err_prob, -float("inf"))
+    score = torch.where(abs_out, 1e12 + err_abs, torch.where(prob_out, err_prob, neg_inf))
+    order = torch.argsort(-score, stable=True)
+    rank = torch.argsort(order, stable=True)
+    m_meas = torch.sum(tracked).to(torch.float64)
+    max_outliers = torch.floor((1.0 - settings.feature_retention) * m_meas).to(rank.dtype)
+    return proposed & (rank < max_outliers)
+
+
+def process_vision(
+    state: EqFState,
+    pixels: torch.Tensor,
+    vis_mask: torch.Tensor,
+    ids: torch.Tensor,
+    camera,
+    settings: Settings,
+    suite: CoordinateSuite | None = None,
+) -> EqFState:
+    """Per-frame vision step: lost, outlier and scale-invalid removal, new
+    landmarks, then the update with all covariance surgery folded into its
+    pre-array."""
+    if suite is None:
+        suite = settings.suite
+    xi0, X = state.xi0, state.X
+    dtype, device = state.Sigma.dtype, state.Sigma.device
+    N = xi0.capacity
+
+    same_id = xi0.ids == ids
+    if settings.remove_lost_landmarks:
+        vis_tracked = vis_mask & same_id
+        lost = xi0.mask & ~vis_tracked
+    else:
+        vis_tracked = vis_mask
+        lost = torch.zeros_like(xi0.mask)
+    invalid = ((X.Q.a <= 1e-8) | (X.Q.a > 1e8)) & xi0.mask
+
+    out = outlier_mask(state, pixels, vis_tracked, camera, settings, suite)
+    rm = (lost | out | invalid) & xi0.mask
+    kept = xi0.mask & ~rm
+    new = vis_mask & ~out & ~kept
+
+    if settings.use_median_depth:
+        depth = median_scene_depth(state, settings, mask=kept)
+    else:
+        depth = torch.tensor(settings.initial_scene_depth, dtype=dtype, device=device)
+    q_new = camera.undistort(pixels) * depth
+    dummy = torch.tensor([0.0, 0.0, 1.0], dtype=dtype, device=device)
+    landmarks = torch.where(new[:, None], q_new, torch.where(kept[:, None], xi0.landmarks, dummy))
+    ids_new = torch.where(new, ids, torch.where(kept, xi0.ids, torch.full_like(xi0.ids, -1)))
+    xi0_new = xi0._replace(landmarks=landmarks, ids=ids_new, mask=kept | new)
+    Q = X.Q._replace(
+        R=torch.where(kept[:, None, None], X.Q.R, _eye_like_Q(state)),
+        a=torch.where(kept, X.Q.a, torch.ones_like(X.Q.a)),
+    )
+    state = state._replace(xi0=xi0_new, X=X._replace(Q=Q))
+
+    ones = torch.ones(SENSOR_DIM, dtype=dtype, device=device)
+    keep_vec = torch.cat([ones, kept.to(dtype).repeat_interleave(3)])
+    pv_init = settings.initial_point_cov_diag(dtype, device).expand(N, 3)
+    add_lm = torch.where(
+        new[:, None],
+        pv_init,
+        torch.where(
+            kept[:, None],
+            torch.zeros_like(pv_init),
+            torch.full_like(pv_init, settings.initial_point_var),
+        ),
+    )
+    add_diag = torch.cat([torch.zeros_like(ones), add_lm.reshape(-1)])
+    vis_upd = (vis_tracked & kept) | new
+    return update_vision(
+        state, pixels, vis_upd, camera, settings, suite, surgery=(keep_vec, add_diag)
+    )
+
+
+def health_check(state: EqFState, settings: Settings) -> dict:
+    """Failure flags: ``nan``, ``sigma_pd`` (factor diagonal > 0) and
+    ``scales_valid`` (active landmark scales inside [1e-8, 1e8])."""
+    _require_sqrt(settings, "health_check")
+    nan = (
+        group_has_nan(state.X)
+        | torch.isnan(state.Sigma).any()
+        | torch.isnan(state.xi0.landmarks).any()
+        | torch.isnan(state.xi0.sensor.pose.R).any()
+    )
+    sigma_pd = torch.all(torch.diagonal(state.Sigma) > 0)
+    a = state.X.Q.a
+    scales_valid = torch.all(torch.where(state.xi0.mask, (a > 1e-8) & (a < 1e8), True))
+    return {"nan": nan, "sigma_pd": sigma_pd, "scales_valid": scales_valid}

@@ -1,0 +1,87 @@
+"""The PyTorch port stands alone: importing it loads neither JAX nor the JAX
+package (nor PyYAML or PIL, which the GPU machine may lack), its KLT wrapper
+takes the plain path on CPU tensors without counting a launch, and
+``chip_smoke.py`` fails without a card."""
+
+import os
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import eqvio_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(eqvio_tpu_torch.__path__, "eqvio_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "eqvio_tpu", "yaml", "PIL"))
+print(len(names), bad)
+assert not bad, bad
+"""
+
+
+def _clean_env():
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX", "XLA"))}
+    env["PYTHONPATH"] = REPO
+    return env
+
+
+def test_port_imports_no_jax():
+    res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=_clean_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    n_modules = int(res.stdout.split()[0])
+    assert n_modules >= 25
+
+
+def test_klt_wrapper_uses_plain_path_on_cpu():
+    from eqvio_tpu_torch.kernels import klt as K
+
+    rng = np.random.default_rng(0)
+    pyr0 = [torch.tensor(rng.uniform(0, 1, (60 >> i, 80 >> i)).astype(np.float32)) for i in range(3)]
+    pyr1 = [p.roll(1, dims=1) for p in pyr0]
+    pos = torch.tensor(rng.uniform(15, 45, (5, 2)).astype(np.float32))
+    before = K.klt_track_pyramid.launches
+    out = K.klt_track_pyramid(pyr0, pyr1, pos, pos, win=7, iters=4)
+    ref = K.klt_track_pyramid_plain(pyr0, pyr1, pos, pos, win=7, iters=4)
+    assert K.klt_track_pyramid.launches == before == 0
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("where", ["repo", "alone"])
+def test_chip_smoke_fails_without_a_card(tmp_path, where):
+    """Without CUDA (or outside the repo) the script exits nonzero and
+    prints no result line."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU: chip_smoke.py would run for real")
+    if where == "repo":
+        cwd, env = REPO, _clean_env()
+    else:
+        shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
+        cwd, env = str(tmp_path), {k: v for k, v in _clean_env().items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode != 0
+    assert '"ok": true' not in res.stdout
+
+
+def test_runtime_device_policy():
+    """CPU runs the filter in float64; CUDA is float32 and is never silently
+    replaced by the CPU; TF32 is off for matmul and cuDNN."""
+    from eqvio_tpu_torch.runtime import configure_runtime
+
+    dev, dtype = configure_runtime("cpu")
+    assert dev.type == "cpu" and dtype == torch.float64
+    assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
+    assert torch.get_float32_matmul_precision() == "highest"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            configure_runtime("cuda")
+    with pytest.raises(ValueError):
+        configure_runtime("mps")
