@@ -7,7 +7,7 @@ update) -> CSV outputs, one frame at a time, eagerly on the chosen device.
 
 Usage:
     python -m eqvio_tpu_torch.app.run_opt <dataset_dir> <config.yaml>
-        [--device cpu|cuda] [--output DIR] [--start T] [--stop T] [--timing]
+        [--device cuda|cpu] [--output DIR] [--start T] [--stop T] [--timing]
 
 Not ported yet (``ROADMAP.md`` queue 1): the fused chunk runner and its
 CUDA-graph capture, per-stage ``--timing`` calibration, checkpoint/resume,
@@ -120,7 +120,7 @@ def run_dataset(
     stop: float | None = None,
     camera_yaml: str | None = None,
     timing: bool = False,
-    device: str = "cpu",
+    device: str = "cuda",
     limit_frames: int | None = None,
 ):
     """Run the per-frame pipeline; returns ``(final EqFState, summary)``.
@@ -129,7 +129,8 @@ def run_dataset(
     object with the ASL reader's interface.  ``start``/``stop`` are offsets
     from the first data stamp.  The summary holds ``frames``, ``fps``,
     ``landmarks``, health flags, and the per-frame ``stamps`` and estimated
-    ``positions`` (numpy).
+    ``positions`` (numpy).  ``device`` is ``"cuda"`` unless the caller asks
+    for ``"cpu"``; without a card the CUDA default raises.
     """
     dev, dtype = configure_runtime(device)
     if isinstance(dataset, str):
@@ -243,8 +244,9 @@ def main(argv=None):
     ap.add_argument("dataset")
     ap.add_argument("config")
     ap.add_argument("--mode", default="asl")
-    ap.add_argument("--device", default="cpu", choices=["cpu", "cuda"],
-                    help="cuda runs the filter in float32 with the CUDA KLT kernel")
+    ap.add_argument("--device", default="cuda", choices=["cpu", "cuda"],
+                    help="cuda (the default) runs the filter in float32 with the CUDA KLT kernel; "
+                         "cpu runs it in float64 with the kernel's plain version")
     ap.add_argument("--output", default=None)
     ap.add_argument("--camera", default=None)
     ap.add_argument("--start", type=float, default=None)

@@ -1,6 +1,6 @@
 from .asl import ASLDatasetReader, CameraInfo, GroundTruth, ImageSeq, IMUSeq
 from .server import DataServer, Measurement, create_dataset_reader
-from .synthetic import SyntheticASLReader, bench_scene
+from .synthetic import SyntheticASLReader, bench_scene, shifted_texture_pair
 
 __all__ = [
     "ASLDatasetReader",
@@ -13,4 +13,5 @@ __all__ = [
     "SyntheticASLReader",
     "bench_scene",
     "create_dataset_reader",
+    "shifted_texture_pair",
 ]

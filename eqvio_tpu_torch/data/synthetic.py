@@ -115,4 +115,21 @@ def bench_scene(end_time: float = 8.0) -> SyntheticASLReader:
                               height=480, num_points=600, seed=4, kind="room")
 
 
-__all__ = ["SyntheticASLReader", "bench_scene"]
+def shifted_texture_pair(height: int, width: int, shift: tuple[int, int], seed: int = 5,
+                         device="cpu") -> tuple[torch.Tensor, torch.Tensor]:
+    """A smooth random texture in [0, 1] (bicubic noise at 64, 16 and 4 px
+    scales) and its copy moved by the integer ``shift`` (x, y) px, wrapping
+    at the borders: a float32 frame pair whose true motion is known
+    everywhere, for tracking checks with large displacements."""
+    rng = np.random.default_rng(seed)
+    img = torch.zeros(height, width)
+    for scale, amp in ((64, 1.0), (16, 0.3), (4, 0.1)):
+        g = torch.tensor(rng.uniform(-1, 1, (height // scale + 2, width // scale + 2)).astype(np.float32))
+        up = torch.nn.functional.interpolate(g[None, None], scale_factor=scale, mode="bicubic",
+                                             align_corners=False)[0, 0]
+        img += amp * up[:height, :width]
+    img = ((img - img.min()) / (img.max() - img.min())).to(device).contiguous()
+    return img, torch.roll(img, shifts=(shift[1], shift[0]), dims=(0, 1)).contiguous()
+
+
+__all__ = ["SyntheticASLReader", "bench_scene", "shifted_texture_pair"]

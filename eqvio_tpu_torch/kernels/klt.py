@@ -8,12 +8,18 @@ is checked against.  A CUDA tensor never takes the plain path: the kernel
 launches or the wrapper raises.
 
 The kernel replaces ``eqvio_tpu/frontend/pallas_klt.py:_klt_kernel_body``.
+Beside the plain version sit a Python mirror of the kernel's shared-memory
+tile geometry (:func:`tile_corner`, :func:`window_in_tile`,
+:func:`bilinear_tiled`), which the CPU tests hold to :func:`bilinear`, and
+:func:`klt_work`, the bytes and operations that set the kernel's bound.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
+import numpy as np
 import torch
 
 from . import build
@@ -98,44 +104,187 @@ def klt_track_pyramid_plain(pyr_prev, pyr_next, positions, guesses, win: int = 2
 
 
 # ---------------------------------------------------------------------------
-# CUDA kernel wrapper
+# The kernel's tile geometry, mirrored for the CPU tests
 # ---------------------------------------------------------------------------
 
 
-def _lib():
-    lib = build.load(_SOURCE)
-    fn = lib.klt_track_pyramid_f32
-    if fn.argtypes is None:
-        P = ctypes.c_void_p
-        fn.argtypes = [P, P, P, P, ctypes.c_int, P, P, P, P,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int, P]
-        fn.restype = ctypes.c_int
-    return lib
+def tile_corner(cx: float, cy: float, reach: float, extent: int, width: int, height: int):
+    """``(x0, y0, w, h)`` of the kernel's staged tile (``csrc/klt_cuda.cu:tile_at``):
+    pitch ``extent``, covering the footprints of samples within ``reach`` px
+    of ``(cx, cy)``, corner clamped into the ``width x height`` image; the
+    arithmetic is float32 as on the card.  The kernel's prev tile has
+    ``reach = r + 1`` and ``extent = win + 3``, with ``r = (win - 1) / 2``."""
+    x0 = int(np.floor(np.float32(cx) - np.float32(reach)))
+    y0 = int(np.floor(np.float32(cy) - np.float32(reach)))
+    return (max(0, min(x0, width - extent)), max(0, min(y0, height - extent)),
+            min(extent, width), min(extent, height))
+
+
+def stage_tile(img: torch.Tensor, corner, extent: int) -> torch.Tensor:
+    """The ``[extent, extent]`` tile the kernel copies to shared memory
+    (pixels outside the image part stay unwritten; zeros here)."""
+    x0, y0, w, h = corner
+    tile = torch.zeros(extent, extent, dtype=img.dtype)
+    tile[:h, :w] = img[y0:y0 + h, x0:x0 + w]
+    return tile
+
+
+def window_in_tile(corner, lo, hi, width: int, height: int) -> bool:
+    """Whether the clamped 2x2 footprints of all samples with coordinates in
+    ``[lo, hi]`` (x, y) lie in the tile (``csrc/klt_cuda.cu:span_in``):
+    clamp and floor are monotone, so the two extreme samples decide."""
+    x0, y0, w, h = corner
+
+    def span(a, b, vmax, t0, extent):
+        vmax = np.float32(vmax)
+        fa = int(np.floor(min(max(np.float32(a), np.float32(0)), vmax))) - t0
+        fb = int(np.floor(min(max(np.float32(b), np.float32(0)), vmax))) - t0
+        return fa >= 0 and fb <= extent - 2
+
+    return span(lo[0], hi[0], width - 1.001, x0, w) and span(lo[1], hi[1], height - 1.001, y0, h)
+
+
+def bilinear_tiled(img: torch.Tensor, tile: torch.Tensor, corner, xy: torch.Tensor):
+    """:func:`bilinear` of one window ``xy [..., 2]`` as the kernel reads it:
+    from the staged tile when every sample's clamped 2x2 footprint lies in
+    it (:func:`window_in_tile` on the extreme samples), else from the image.
+    Returns ``(values, from_tile)``."""
+    H, W = img.shape
+    flat = xy.reshape(-1, 2)
+    lo, hi = flat.min(0).values.tolist(), flat.max(0).values.tolist()
+    if not window_in_tile(corner, lo, hi, W, H):
+        return bilinear(img, xy), False
+    x = torch.clamp(xy[..., 0], 0.0, W - 1.001)
+    y = torch.clamp(xy[..., 1], 0.0, H - 1.001)
+    xf, yf = torch.floor(x), torch.floor(y)
+    fx, fy = x - xf, y - yf
+    pitch = tile.shape[1]
+    base = (yf.to(torch.int64) - corner[1]) * pitch + (xf.to(torch.int64) - corner[0])
+    t = tile.reshape(-1)
+    i00, i01, i10, i11 = t[base], t[base + 1], t[base + pitch], t[base + pitch + 1]
+    return i00 * (1 - fx) * (1 - fy) + i01 * fx * (1 - fy) + i10 * (1 - fx) * fy + i11 * fx * fy, True
+
+
+# ---------------------------------------------------------------------------
+# Work of one call, for the bound
+# ---------------------------------------------------------------------------
+
+# float32 operations per window sample and level: the template stage (two
+# centre coordinates, four shifted ones, five bilinear samples of 21 each:
+# 4 clamp, 2 floor, 2 fraction, 2 one-minus, 8 multiply, 3 add; two gradient
+# differences; three products and three sums for the normal matrix)
+_OPS_TEMPLATE = 2 + 4 + 5 * 21 + 2 + 6
+# and per Gauss-Newton step: two coordinates, one bilinear sample, the
+# residual, and three products-and-sums (|d| counted as one operation)
+_OPS_STEP = 2 + 21 + 1 + 2 + 2 + 2
+# per feature and level: two centre divisions, the determinant (3) and its
+# floor test, and per step the 2x2 solve (8), the update (2) and err (1)
+_OPS_LEVEL = 2 + 4
+_OPS_LEVEL_STEP = 8 + 2 + 1
+
+
+def klt_work(n: int, level_shapes, win: int, iters: int) -> tuple[int, int]:
+    """``(bytes, float32 operations)`` that tracking ``n`` features through
+    pyramids of ``level_shapes [(H, W), ...]`` needs, the count a bound is
+    taken from.  Bytes: per feature and level the prev neighbourhood of
+    ``(win + 3)^2`` pixels and one next-image window footprint of
+    ``(win + 1)^2``, both cut to the image, read once; positions and guesses
+    read, positions and err written.  Operations: those of the plain
+    version's arithmetic, fixed for fixed ``iters`` (the loop has no early
+    exit)."""
+    per_feature_bytes = 2 * 8 + 12
+    for h, w in level_shapes:
+        per_feature_bytes += 4 * (min(win + 3, w) * min(win + 3, h) + min(win + 1, w) * min(win + 1, h))
+    samples = win * win
+    per_level_ops = (samples * (_OPS_TEMPLATE + iters * _OPS_STEP)
+                     + _OPS_LEVEL + iters * _OPS_LEVEL_STEP)
+    return n * per_feature_bytes, n * len(level_shapes) * per_level_ops
+
+
+# NVIDIA H100 SXM peaks (data sheet): HBM3 bytes/s, float32 outside the tensor cores
+H100_BYTES_PER_S = 3.35e12
+H100_F32_OPS_PER_S = 67e12
+
+
+def bound_ms(n: int, level_shapes, win: int, iters: int) -> tuple[float, str]:
+    """The least time an H100 SXM could take for :func:`klt_work`:
+    ``(ms, "bytes" | "operations")``."""
+    nbytes, ops = klt_work(n, level_shapes, win, iters)
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, ops / H100_F32_OPS_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernel wrapper
+# ---------------------------------------------------------------------------
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# ctypes level arrays by (pointers, shapes): the tracker alternates between
+# a few pyramid buffers, so a frame's call finds its arrays here
+_level_args: dict[tuple, tuple] = {}
+_LEVEL_ARGS_KEEP = 16
+# The raw handle of the current stream: torch.cuda.current_stream(dev)
+# builds a Stream object per call, about 10 us on the H100's host (PERF.md).
+# The private call is missing from CPU-only builds and may leave later
+# torch versions, so the public one stands in.
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) or \
+    (lambda index: torch.cuda.current_stream(index).cuda_stream)
+
+
+@functools.cache
+def _fn():
+    """The bound C entry point ``klt_track_pyramid_f32`` (builds the library)."""
+    fn = build.load(_SOURCE).klt_track_pyramid_f32
+    fn.argtypes = [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def build_kernel() -> float:
     """Build (or load) the kernel library; returns the seconds it took."""
-    _lib()
+    _fn()
     return build.build_seconds[_SOURCE]
 
 
-def _check_cuda_inputs(pyr_prev, pyr_next, positions, guesses):
+def _check_cuda_inputs(pyr_prev, pyr_next, positions, guesses) -> tuple:
+    """Raise on inputs the kernel does not take; returns the pyramids' key
+    (data pointers and shapes) for :data:`_level_args`."""
     levels = len(pyr_prev)
     if levels < 1 or levels > MAX_LEVELS or len(pyr_next) != levels:
         raise ValueError(f"need 1..{MAX_LEVELS} levels in both pyramids, got {levels}/{len(pyr_next)}")
     dev = positions.device
+    f32 = torch.float32
     for name, t in (("positions", positions), ("guesses", guesses)):
-        if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
+        if t.device != dev or t.dtype != f32 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous float32 tensor on {dev}")
         if t.dim() != 2 or t.shape[1] != 2 or t.shape[0] != positions.shape[0]:
             raise ValueError(f"{name} must have shape [N, 2], got {tuple(t.shape)}")
+    on_dev = (lambda t: t.is_cuda and t.get_device() == dev.index) if dev.type == "cuda" else \
+        (lambda t: t.device == dev)
+    key = []
     for lvl, (a, b) in enumerate(zip(pyr_prev, pyr_next)):
-        for t in (a, b):
-            if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
-                raise ValueError(f"pyramid level {lvl} must be contiguous float32 on {dev}")
-            if t.dim() != 2 or t.shape != a.shape or min(t.shape) < 2:
-                raise ValueError(f"pyramid level {lvl} shapes differ or are too small: "
-                                 f"{tuple(a.shape)} vs {tuple(b.shape)}")
+        shape = a.shape
+        if not (on_dev(a) and on_dev(b) and a.dtype == f32 and b.dtype == f32
+                and a.is_contiguous() and b.is_contiguous()):
+            raise ValueError(f"pyramid level {lvl} must be contiguous float32 on {dev}")
+        if len(shape) != 2 or b.shape != shape or shape[0] < 2 or shape[1] < 2:
+            raise ValueError(f"pyramid level {lvl} shapes differ or are too small: "
+                             f"{tuple(a.shape)} vs {tuple(b.shape)}")
+        key += (a.data_ptr(), b.data_ptr(), shape[0], shape[1])
+    return tuple(key)
+
+
+def _level_arrays(key: tuple) -> tuple:
+    """``(prev pointers, next pointers, heights, widths)`` as ctypes arrays."""
+    args = _level_args.get(key)
+    if args is None:
+        levels = len(key) // 4
+        u64, i32 = ctypes.c_uint64 * levels, ctypes.c_int * levels
+        args = (u64(*key[0::4]), u64(*key[1::4]), i32(*key[2::4]), i32(*key[3::4]))
+        if len(_level_args) >= _LEVEL_ARGS_KEEP:
+            _level_args.clear()
+        _level_args[key] = args
+    return args
 
 
 def klt_track_pyramid(pyr_prev, pyr_next, positions, guesses, win: int = 21, iters: int = 8):
@@ -149,29 +298,26 @@ def klt_track_pyramid(pyr_prev, pyr_next, positions, guesses, win: int = 21, ite
         return klt_track_pyramid_plain(pyr_prev, pyr_next, positions, guesses, win, iters)
     if positions.device.type != "cuda":
         raise ValueError(f"unsupported device {positions.device}")
-    _check_cuda_inputs(pyr_prev, pyr_next, positions, guesses)
+    key = _check_cuda_inputs(pyr_prev, pyr_next, positions, guesses)
     if win * win > 1024 or win < 1 or iters < 1:
         raise ValueError(f"kernel takes 1 <= win*win <= 1024 and iters >= 1 (win={win}, iters={iters})")
     n = positions.shape[0]
     out_pos = torch.empty_like(positions)
-    out_err = torch.empty(n, dtype=torch.float32, device=positions.device)
+    out_err = positions.new_empty(n)
     if n == 0:
         return out_pos, out_err
-    levels = len(pyr_prev)
-    u64 = ctypes.c_uint64 * levels
-    i32 = ctypes.c_int * levels
-    prev_ptrs = u64(*[t.data_ptr() for t in pyr_prev])
-    next_ptrs = u64(*[t.data_ptr() for t in pyr_next])
-    heights = i32(*[t.shape[0] for t in pyr_prev])
-    widths = i32(*[t.shape[1] for t in pyr_prev])
-    fn = _lib().klt_track_pyramid_f32
-    with torch.cuda.device(positions.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(prev_ptrs, next_ptrs, heights, widths, levels,
-                positions.data_ptr(), guesses.data_ptr(), out_pos.data_ptr(), out_err.data_ptr(),
-                n, win, iters, stream)
+    fn = _fn()
+    args = (*_level_arrays(key), len(pyr_prev), positions.data_ptr(), guesses.data_ptr(),
+            out_pos.data_ptr(), out_err.data_ptr(), n, win, iters)
+    dev = positions.device
+    stream = _raw_stream(dev.index)
+    if dev.index == torch.cuda.current_device():
+        rc = fn(*args, stream)
+    else:
+        with torch.cuda.device(dev):
+            rc = fn(*args, stream)
     if rc != 0:
-        raise RuntimeError(f"klt_track_pyramid_f32 launch failed: CUDA error {rc}")
+        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {rc}")
     klt_track_pyramid.launches += 1
     return out_pos, out_err
 

@@ -1,0 +1,130 @@
+"""Inputs and timers for measuring the KLT kernel on the card.
+
+``chip_smoke.py`` (phase 3) and ``scripts/klt_timing.py`` both measure the
+kernel at the main path's shape, taken here once: frames 100 and 101 of the
+benchmark scene (752x480, 4-level pyramids, win 21, 8 steps) with the
+scene's detected corners (N = 30, guesses = positions), and the same plus
+:func:`border_features` (38).  The timers need a CUDA device; nothing here
+runs at import.
+"""
+
+from __future__ import annotations
+
+import statistics
+import time
+from typing import NamedTuple
+
+import torch
+
+from ..data import bench_scene
+from ..frontend import build_pyramid, detect_features
+from ..io import bench_config, tracker_config_from_config
+
+ITERS = 8  # Gauss-Newton steps per level on the main path
+
+
+def border_features(height: int, width: int) -> list[list[float]]:
+    """Eight full-resolution features within 12 px of the borders and corners."""
+    return [[6.0, 240.0], [width - 7.0, 100.0], [376.0, 5.0], [300.0, height - 6.0], [10.0, 10.0],
+            [width - 11.0, height - 11.0], [8.0, 400.0], [700.0, 8.0]]
+
+
+class KltCase(NamedTuple):
+    pyr0: list
+    pyr1: list
+    main: torch.Tensor  # [30, 2] detected corners: the main path's shape
+    pair: torch.Tensor  # [38, 2] the corners and the border features
+    win: int
+    iters: int
+    max_error: float
+
+
+def klt_case(device, reader=None, frames: tuple[int, int] = (100, 101)) -> KltCase:
+    """The frame pair of the benchmark scene (or ``reader``) on ``device``."""
+    reader = bench_scene(8.0) if reader is None else reader
+    tcfg = tracker_config_from_config(bench_config())
+    levels, win = tcfg.max_level + 1, tcfg.win_size
+    f0, f1 = (torch.tensor(reader.load_image_u8(i), device=device).float() * (1.0 / 255.0) for i in frames)
+    corners, valid = detect_features(f0, tcfg.max_features, min_dist=tcfg.feature_dist, border=win)
+    if int(valid.sum()) < tcfg.max_features:
+        raise RuntimeError(f"only {int(valid.sum())} corners detected on frame {frames[0]}")
+    main = corners[valid].contiguous()
+    border = torch.tensor(border_features(*f0.shape), device=device)
+    return KltCase(build_pyramid(f0, levels), build_pyramid(f1, levels), main,
+                   torch.cat([main, border]).contiguous(), win, ITERS, tcfg.max_error)
+
+
+def cuda_ms(fn, reps: int = 50) -> float:
+    """ms per call from CUDA events around ``reps`` back-to-back calls (for
+    the plain version, whose many small kernels this times as a whole)."""
+    for _ in range(3):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, launches: int = 50, replays: int = 20) -> float:
+    """Device ms per call: ``launches`` calls captured in one CUDA graph,
+    replayed ``replays`` times between CUDA events (no host work between
+    launches, so back-to-back kernels and their gaps are what is timed)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * launches)
+
+
+def profiler_ms(fn, kernel: str, calls: int = 50):
+    """Device ms per launch of the kernels whose name holds ``kernel``, from
+    ``torch.profiler``'s CUDA activity over ``calls`` calls; None when the
+    profiler records no device time for it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total_us, count = 0.0, 0
+    for ev in prof.key_averages():
+        if kernel in ev.key:
+            total_us += getattr(ev, "device_time_total", 0.0) or getattr(ev, "cuda_time_total", 0.0)
+            count += ev.count
+    return total_us / count / 1e3 if count and total_us > 0 else None
+
+
+def host_ms(fn, calls: int = 100, batches: int = 7) -> float:
+    """Host ms per call with no synchronisation between calls (the enqueue
+    cost the caller's thread pays): the median over ``batches`` batches, as
+    the host's clock is shared with other work."""
+    fn()
+    torch.cuda.synchronize()
+    per_call = []
+    for _ in range(batches):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        per_call.append((time.perf_counter() - t0) * 1e3 / calls)
+        torch.cuda.synchronize()
+    return statistics.median(per_call)

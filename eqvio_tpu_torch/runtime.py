@@ -6,8 +6,9 @@ convolutions) keeps about three decimal digits, the Hopper analogue of the
 TPU's bfloat16 default that was fatal for the filter.  So both TF32 switches
 are turned off and float32 matmul precision is pinned to ``highest``.
 
-Device policy: CUDA only when asked, and a request for CUDA on a machine
-without a card raises instead of dropping to the CPU.  Filter math runs in
+Device policy: the card by default, the CPU only when the caller asks for
+it; a run on CUDA, asked for or by default, on a machine without a card
+raises instead of dropping to the CPU.  Filter math runs in
 float64 on the CPU and float32 on CUDA (square-root covariance keeps f32
 finite); the image front end is float32 everywhere.
 """
@@ -19,7 +20,7 @@ import os
 import torch
 
 
-def configure_runtime(device: str = "cpu") -> tuple[torch.device, torch.dtype]:
+def configure_runtime(device: str = "cuda") -> tuple[torch.device, torch.dtype]:
     """Set the global precision knobs; returns ``(device, filter dtype)``.
 
     ``EQVIO_DEBUG_NANS=1`` turns on autograd anomaly detection, and

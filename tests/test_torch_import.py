@@ -1,12 +1,14 @@
 """The PyTorch port stands alone: importing it loads neither JAX nor the JAX
 package (nor PyYAML or PIL, which the GPU machine may lack), its KLT wrapper
-takes the plain path on CPU tensors without counting a launch, and
-``chip_smoke.py`` fails without a card."""
+takes the plain path on CPU tensors without counting a launch, its entry
+points run on the card unless asked for the CPU, and ``chip_smoke.py`` fails
+without a card."""
 
 import os
 import shutil
 import subprocess
 import sys
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -85,3 +87,35 @@ def test_runtime_device_policy():
             configure_runtime("cuda")
     with pytest.raises(ValueError):
         configure_runtime("mps")
+
+
+
+def test_entry_points_default_to_the_card():
+    """``configure_runtime``, ``run_dataset`` and the CLI's ``--device``
+    default to CUDA; without a card that default raises rather than running
+    on the CPU."""
+    from eqvio_tpu_torch.app import run_opt
+    from eqvio_tpu_torch.data import SyntheticASLReader
+    from eqvio_tpu_torch.io import bench_config
+    from eqvio_tpu_torch.runtime import configure_runtime
+
+    seen = {}
+
+    def fake_run(dataset, config, **kwargs):
+        seen.update(kwargs)
+        return None, {"healthy": True, "frames": 0, "fps": 0.0, "landmarks": 0}
+
+    with mock.patch.object(run_opt, "load_config", return_value={}), \
+            mock.patch.object(run_opt, "run_dataset", side_effect=fake_run):
+        run_opt.main(["dataset_dir", "config.yaml"])
+    assert seen["device"] == "cuda"
+
+    if torch.cuda.is_available():
+        dev, dtype = configure_runtime()
+        assert dev.type == "cuda" and dtype == torch.float32
+        return
+    with pytest.raises(RuntimeError, match="cuda"):
+        configure_runtime()
+    reader = SyntheticASLReader(end_time=0.5, frame_freq=10.0, num_points=50)
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_opt.run_dataset(reader, bench_config(), limit_frames=1)

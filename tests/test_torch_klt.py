@@ -6,6 +6,10 @@
   borders.
 - One level against the Pallas kernel in interpret mode at the tolerances
   of ``tests/test_pallas_klt.py`` (0.1 px interior, 2e-3 px at borders).
+- The kernel's shared-memory tile geometry, mirrored in Python: sampling
+  through "the tile if the footprint lies in it, else the image" equals
+  :func:`bilinear` exactly on the four level shapes of 752x480, and float
+  rounding that pushes a window past its tile sends it to the image.
 
 The CUDA kernel is held to the plain version on the card in
 ``tests/test_torch_cuda.py``.
@@ -22,6 +26,7 @@ from eqvio_tpu.frontend.pallas_klt import klt_track_level_pallas
 from eqvio_tpu.frontend.pyramid import build_pyramid as jax_build_pyramid
 from eqvio_tpu_torch.frontend.klt import track_features
 from eqvio_tpu_torch.kernels import klt as K
+from eqvio_tpu_torch.kernels.klt_bench import border_features
 
 H, W = 240, 320
 WIN, ITERS = 21, 8
@@ -125,3 +130,68 @@ def test_wrapper_rejects_unsupported_inputs():
     with pytest.raises(ValueError, match="level 1"):
         K._check_cuda_inputs(p0, [p1[0], p1[1].t().contiguous(), *p1[2:]], good, good)
     K._check_cuda_inputs(p0, p1, good, good)
+
+
+# the border and corner features of the KLT measurements at 752x480 (full resolution)
+_FULL_H, _FULL_W = 480, 752
+_BORDER = border_features(_FULL_H, _FULL_W)
+
+
+def _footprints_in(corner, xy, W, H):
+    """Per sample: the clamped 2x2 footprint lies in the tile."""
+    x = torch.clamp(xy[..., 0], 0.0, W - 1.001)
+    y = torch.clamp(xy[..., 1], 0.0, H - 1.001)
+    ix = torch.floor(x).to(torch.int64) - corner[0]
+    iy = torch.floor(y).to(torch.int64) - corner[1]
+    return (ix >= 0) & (ix <= corner[2] - 2) & (iy >= 0) & (iy <= corner[3] - 2)
+
+
+def _template_window(c, win=WIN):
+    """The template window at centre ``c`` with its +-1 px gradient samples,
+    computed as the kernel does: (c + offset) +- 1 in float32."""
+    coords = torch.tensor(c, dtype=torch.float32) + K._window_offsets(win, torch.float32, "cpu")
+    ex, ey = torch.tensor([1.0, 0.0]), torch.tensor([0.0, 1.0])
+    return torch.stack([coords + ex, coords - ex, coords + ey, coords - ey, coords])
+
+
+@pytest.mark.parametrize("win", [15, 21, 31])
+@pytest.mark.parametrize("level", [0, 1, 2, 3])
+def test_tile_geometry_samples_equal_bilinear(level, win):
+    """Per feature, the prev tile staged around it serves the template
+    window (+-1 px gradients included): interior, border and corner
+    features, and centres outside the image, for windows of 1, 2 and 4
+    samples per lane.  The extreme samples decide exactly when every
+    footprint lies in the tile, and every value equals :func:`bilinear` bit
+    for bit."""
+    rng = np.random.default_rng(10 * level + win)
+    H, W = _FULL_H >> level, _FULL_W >> level
+    img = torch.tensor(rng.uniform(0, 1, (H, W)).astype(np.float32))
+    full = np.concatenate([rng.uniform([30, 30], [_FULL_W - 30, _FULL_H - 30], (6, 2)), _BORDER,
+                           [[-40.0, 200.0], [_FULL_W + 25.0, -30.0]]])
+    r = (win - 1) / 2
+    for c in (full / 2.0**level).astype(np.float32):
+        corner = K.tile_corner(c[0], c[1], r + 1, win + 3, W, H)
+        tile = K.stage_tile(img, corner, win + 3)
+        window = _template_window(c, win)
+        assert bool(_footprints_in(corner, window, W, H).all())
+        vals, from_tile = K.bilinear_tiled(img, tile, corner, window)
+        assert from_tile and torch.equal(vals, K.bilinear(img, window))
+
+
+def test_tile_geometry_rounding_reads_the_image():
+    """At cx = 118 - 2^-17, cx + r = 128 - 2^-17 and adding 1 rounds (a tie,
+    to even) up to 129: the window's last footprint column falls one pixel
+    past the tile.  The extreme-sample check sees it and the window reads
+    the image; one ulp lower, it stays in the tile.  Both equal
+    :func:`bilinear` bit for bit."""
+    H, W = _FULL_H, _FULL_W
+    img = torch.tensor(np.random.default_rng(3).uniform(0, 1, (H, W)).astype(np.float32))
+    r = (WIN - 1) / 2
+    for ulps, inside in ((1, False), (2, True)):
+        c = np.array([118.0 - ulps * 2.0**-17, 200.0], np.float32)
+        corner = K.tile_corner(c[0], c[1], r + 1, WIN + 3, W, H)
+        window = _template_window(c)
+        assert bool(_footprints_in(corner, window, W, H).all()) == inside
+        vals, from_tile = K.bilinear_tiled(img, K.stage_tile(img, corner, WIN + 3), corner, window)
+        assert from_tile == inside
+        assert torch.equal(vals, K.bilinear(img, window))
