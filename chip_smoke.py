@@ -21,12 +21,31 @@ Phases, each printing one line; any failure exits nonzero before the result:
    ``torch.profiler`` (and from the replay of 50 launches captured in one
    CUDA graph), the wrapper's host time per call, the plain version's time,
    and the bound.
-4. slice: ``run_dataset`` on ``cuda`` (float32) over the benchmark scene cut
+4. slice: the eager per-frame ``run_dataset(chunk_size=1)`` on ``cuda``
+   (float32) over the benchmark scene cut
    to 8 s (>= 100 frames): finite and healthy, >= 10 landmarks, one KLT
    launch per frame tracked; prints ms/frame and the position RMSE against
    ground truth after a similarity alignment.
 5. cpu: the same run on the CPU in float64 for the first 20 frames; the
    largest per-frame position difference to the card run must stay <= 0.05 m.
+6. fused: ``run_dataset(chunk_size=16)`` on ``cuda`` over the same scene,
+   the frame step captured once as a CUDA graph and replayed per frame, with
+   the ``--timing`` stage calibration: finite and healthy, >= 10 landmarks;
+   over the first 20 frames the same tracked ids as the eager card run
+   (phase 4) with positions within 1e-4 m, and within 0.05 m of the CPU
+   float64 run (phase 5).  The run traces its chunk ``PROFILE_CHUNK`` alone
+   (``profile_chunk``: from an idle card to the end of its device work);
+   the trace must show ``klt_pyramid_kernel`` once per frame, and the KLT
+   wrapper, which does not count calls made under capture, must count the
+   eager warm-ups before each capture and nothing else.  Prints fused and
+   eager ms/frame, the device ms/frame and host decomposition, and from the
+   traced chunk the CUDA runtime calls per frame (against those of an eager
+   run), the device's idle share over the chunk's device span (the tracer
+   slows the host's graph launches) and against the run's untraced device
+   time per frame, the host's untraced enqueue time per frame, the KLT
+   kernel's device time inside the graph and the largest device kernels per
+   frame; the detector's device time, and the capture's seconds and
+   graph-pool bytes.
 
 Then one JSON line with the kernels' numbers and, last, the result line
 ``{"ok": true, "device": {...}}``.
@@ -36,6 +55,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -45,7 +65,17 @@ SCENE_SECONDS = 8.0
 CPU_FRAMES = 20
 KERNEL_TOL_PX = 2e-4
 CPU_TOL_M = 0.05
+CHUNK = 16
+FUSED_FRAMES = 20  # frames compared against the eager card run and the CPU run
+FUSED_TOL_M = 1e-4  # the same float32 kernels in and outside the graph; round-off only
+EAGER_PROFILE_FRAMES = 8
+# host runtime calls that put work on the card: kernel and graph launches, copies, fills
+LAUNCH_CALLS = {"cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+                "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync"}
+DEVICE_CATS = {"kernel", "gpu_memcpy", "gpu_memset"}  # a chrome trace's device work
 TRAVEL_PX = 3  # coarsest-level travel of the moved pair's tracks
+PROFILE_CHUNK = 2  # the fused run's chunk that is traced (chunk 0 holds the capture)
+PROFILE_DIR = os.path.join(HERE, "build", "smoke_profile")  # build/ is git-ignored
 
 
 def fail(msg: str) -> None:
@@ -68,6 +98,76 @@ def umeyama_rmse(est, gt) -> float:
     s = float(np.trace(np.diag(S) @ D) / var_e) if var_e > 0 else 1.0
     aligned = s * est @ R.T + (mu_g - s * R @ mu_e)
     return float(np.sqrt(((aligned - gt) ** 2).sum(-1).mean()))
+
+
+def launch_calls(fn) -> dict:
+    """Run ``fn`` under ``torch.profiler`` (CPU and CUDA activity) and
+    return its host launch and copy calls by name; the caller synchronises
+    inside ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+    calls: dict = {}
+    for ev in prof.events():
+        if ev.name in LAUNCH_CALLS:
+            calls[ev.name] = calls.get(ev.name, 0) + 1
+    return calls
+
+
+def trace_counts(path: str):
+    """From a ``torch.profiler`` chrome trace: ``(host launch and copy calls
+    by name, device events [(name, start_us, end_us, correlation id)], the
+    correlation ids of the graph launches in order, host span in us from
+    the first launch or copy call's start to the last one's end)``.  A
+    graph's kernels carry the correlation id of the launch that ran them."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    calls, device, host, graphs = {}, [], [], []
+    for ev in events:
+        if ev.get("ph") != "X":
+            continue
+        start, end = float(ev["ts"]), float(ev["ts"]) + float(ev.get("dur", 0))
+        corr = (ev.get("args") or {}).get("correlation")
+        if ev.get("cat") in DEVICE_CATS:
+            device.append((ev["name"], start, end, corr))
+        elif ev["name"] in LAUNCH_CALLS:
+            calls[ev["name"]] = calls.get(ev["name"], 0) + 1
+            host.append((start, end))
+            if ev["name"] == "cudaGraphLaunch":
+                graphs.append((start, corr))
+    if not device or not host:
+        fail(f"{path}: {len(device)} device events and {len(host)} launch calls; categories "
+             f"{sorted({str(ev.get('cat')) for ev in events})}")
+    return calls, device, [c for _, c in sorted(graphs)], max(b for _, b in host) - min(a for a, _ in host)
+
+
+def kernel_label(name: str) -> str:
+    """A short label for a kernel's demangled name: its functor (``MulFunctor``)
+    or the host function that launched it (``direct_copy_kernel_cuda``) where
+    the name holds one, else the name's start."""
+    functors = [f for f in re.findall(r"\w*[Ff]unctor\w*", name)
+                if f not in ("BinaryFunctor", "AUnaryFunctor", "BUnaryFunctor")]
+    if functors:
+        return functors[0]
+    launcher = re.search(r"(\w+)\((?:at::)?TensorIterator", name)
+    if launcher:
+        return launcher.group(1)
+    bare = re.sub(r"^void |at::native::|\(anonymous namespace\)::", "", name.split("::type ")[-1])
+    return re.split(r"[(<]", bare)[0] or name[:60]
+
+
+def busy_us(device_events) -> float:
+    """Union of the device events' intervals, in us."""
+    total, end = 0.0, None
+    for _, a, b, _ in sorted(device_events, key=lambda e: e[1]):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total
 
 
 def main() -> None:
@@ -187,11 +287,11 @@ def main() -> None:
           f"{pair_prof} ms ({card})", flush=True)
 
     # ---- 4. the slice on the card ----------------------------------------
-    run_dataset(reader, cfg, device="cuda", limit_frames=5)  # warm-up: library handles, allocator
+    run_dataset(reader, cfg, device="cuda", chunk_size=1, limit_frames=5)  # warm-up: library handles, allocator
     K.klt_track_pyramid.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    state, summary = run_dataset(reader, cfg, device="cuda")
+    state, summary = run_dataset(reader, cfg, device="cuda", chunk_size=1)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = K.klt_track_pyramid.launches
@@ -211,7 +311,7 @@ def main() -> None:
           f"position RMSE {rmse:.4f} m (sim(3)-aligned), KLT launches {launches} ({card})", flush=True)
 
     # ---- 5. card against CPU ---------------------------------------------
-    _, cpu = run_dataset(reader, cfg, device="cpu", limit_frames=CPU_FRAMES)
+    _, cpu = run_dataset(reader, cfg, device="cpu", chunk_size=1, limit_frames=CPU_FRAMES)
     n = min(CPU_FRAMES, len(cpu["positions"]))
     if n < CPU_FRAMES or not np.array_equal(cpu["stamps"][:n], summary["stamps"][:n]):
         fail("cpu: the float64 run did not cover the card run's first frames")
@@ -220,14 +320,123 @@ def main() -> None:
         fail(f"cpu: max per-frame position difference {diff} m (limit {CPU_TOL_M})")
     print(f"cpu: first {n} frames, cpu f64 vs cuda f32 max position difference {diff:.3g} m", flush=True)
 
+    # ---- 6. the fused path: the frame step as a CUDA graph ----------------
+    from eqvio_tpu_torch.app.run_opt import WARMUP_STEPS
+
+    run_dataset(reader, cfg, device="cuda", chunk_size=CHUNK, limit_frames=2 * CHUNK)  # warm-up
+    K.klt_track_pyramid.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state_f, fused = run_dataset(reader, cfg, device="cuda", chunk_size=CHUNK, timing=True,
+                                 profile_dir=PROFILE_DIR, profile_chunk=PROFILE_CHUNK)
+    torch.cuda.synchronize()
+    wall_f = time.perf_counter() - t0
+    warmup_launches = K.klt_track_pyramid.launches
+    frames_f = fused["frames"]
+    finite = all(bool(torch.isfinite(t).all()) for t in (state_f.Sigma, state_f.X.A.R, state_f.X.A.x,
+                                                         state_f.X.Q.a, state_f.xi0.landmarks))
+    if frames_f != frames or not finite or not fused["healthy"] or fused["landmarks"] < 10:
+        fail(f"fused: frames {frames_f} (eager {frames}), finite {finite}, healthy {fused['healthy']}, "
+             f"landmarks {fused['landmarks']}")
+    if "graph" not in fused:
+        fail("fused: the run captured no graph")
+    # the wrapper counts eager launches only: the warm-up before each capture of
+    # the frame step and of the calibration's three feature stages
+    if warmup_launches != WARMUP_STEPS * 4:
+        fail(f"fused: the KLT wrapper counted {warmup_launches} eager launches, not the "
+             f"{WARMUP_STEPS * 4} of the warm-ups before capture")
+    n = FUSED_FRAMES
+    if not np.array_equal(fused["stamps"][:n], summary["stamps"][:n]):
+        fail("fused: the fused and eager runs' stamps differ")
+    if not np.array_equal(fused["feature_ids"][:n], summary["feature_ids"][:n]):
+        bad = int(np.argmax((fused["feature_ids"][:n] != summary["feature_ids"][:n]).any(1)))
+        fail(f"fused: tracked ids differ from the eager card run from frame {bad}")
+    diff_eager = float(np.abs(fused["positions"][:n] - summary["positions"][:n]).max())
+    diff_cpu = float(np.abs(fused["positions"][:n] - cpu["positions"][:n]).max())
+    if not np.isfinite(diff_eager) or diff_eager > FUSED_TOL_M:
+        fail(f"fused: max position difference to the eager card run {diff_eager} m (limit {FUSED_TOL_M})")
+    if not np.isfinite(diff_cpu) or diff_cpu > CPU_TOL_M:
+        fail(f"fused: max position difference to the cpu float64 run {diff_cpu} m (limit {CPU_TOL_M})")
+
+    # chunk PROFILE_CHUNK of this run, traced alone from an idle card: launches,
+    # idle share, the KLT inside the graph
+    prof = fused.get("profile") or {}
+    if prof.get("chunk") != PROFILE_CHUNK or prof.get("frames") != CHUNK:
+        fail(f"fused: chunk {PROFILE_CHUNK} of {CHUNK} frames was not traced ({prof})")
+    calls, device_events, replays, host_us = trace_counts(os.path.join(PROFILE_DIR, "trace.json"))
+    per_replay = {c: [0, 0] for c in replays}  # device events, KLT launches
+    for name, _, _, c in device_events:
+        if c in per_replay:
+            per_replay[c][0] += 1
+            per_replay[c][1] += "klt_pyramid_kernel" in name
+    events_per_replay = sorted(n for n, _ in per_replay.values())
+    klt_per_replay = [k for _, k in per_replay.values()]
+    klt = [b - a for name, a, b, _ in device_events if "klt_pyramid_kernel" in name]
+    if len(replays) != CHUNK or klt_per_replay != [1] * CHUNK or len(klt) != CHUNK:
+        fail(f"fused: the trace shows {len(replays)} graph launches for {CHUNK} frames, klt_pyramid_kernel "
+             f"launches per graph launch {klt_per_replay}, {len(klt)} in all (device events per graph launch "
+             f"{events_per_replay}, calls {calls})")
+    ms_klt_graph = sum(klt) / len(klt) / 1e3
+    span_ms = (max(e[2] for e in device_events) - min(e[1] for e in device_events)) / 1e3 / CHUNK
+    busy_ms = busy_us(device_events) / 1e3 / CHUNK
+    idle = 1.0 - busy_ms / span_ms  # over the traced window, whose host the tracer slows
+    idle_untraced = 1.0 - busy_ms / fused["device_ms_per_frame"]  # against this run's untraced replays
+    launches_graph = sum(calls.values()) / CHUNK
+    host_ms = host_us / 1e3 / CHUNK
+
+    setup_s = fused["setup_s"]
+    # wall time per frame without the set-up (capture, calibration) and the traced chunk
+    ms_fused = (wall_f - setup_s - prof["s"]) * 1e3 / (frames_f - prof["frames"])
+    sections = fused["device_sections_ms"]
+    print(f"fused: {frames_f} frames on cuda f32 in chunks of {CHUNK}: {ms_fused:.3f} ms/frame without the "
+          f"{setup_s:.2f} s of capture and calibration and the traced chunk's {prof['s']:.2f} s "
+          f"({wall_f * 1e3 / frames_f:.3f} with them), eager {ms_frame:.2f} ms/frame in the same process; "
+          f"device {fused['device_ms_per_frame']} ms/frame; host ms/frame {json.dumps(fused['host_ms_per_frame'])}, "
+          f"dispatch {fused['dispatch_ms_per_frame']}, fetch {fused['fetch_ms_per_frame']}; {fused['landmarks']} "
+          f"landmarks; first {n} frames: ids equal to the eager run, positions within {diff_eager:.3g} m of it "
+          f"and {diff_cpu:.3g} m of cpu f64 ({card})", flush=True)
+    print(f"fused: device sections ms/frame {json.dumps(sections)}; detector "
+          f"{sections['features_full'] - sections['features_skip']:.3f} ms/frame (features full - skip); "
+          f"searched fraction {fused['searched_frame_fraction']}; graph capture and instantiation "
+          f"{fused['graph']['capture_s']:.3f} s, pool {fused['graph']['pool_bytes']} bytes; KLT wrapper "
+          f"{warmup_launches} eager warm-up launches ({card})", flush=True)
+
+    def eager_frames():
+        run_dataset(reader, cfg, device="cuda", chunk_size=1, limit_frames=EAGER_PROFILE_FRAMES)
+        torch.cuda.synchronize()
+
+    eager_calls = launch_calls(eager_frames)
+    launches_eager = sum(eager_calls.values()) / EAGER_PROFILE_FRAMES
+    print(f"fused: traced chunk {PROFILE_CHUNK} of the run: CUDA runtime calls per frame {launches_graph:.2f} "
+          f"({json.dumps({k: v / CHUNK for k, v in calls.items()})}) against {launches_eager:.1f} eager "
+          f"({EAGER_PROFILE_FRAMES} frames of a separate run); device busy {busy_ms:.3f} ms/frame; idle share "
+          f"{idle:.3f} over the traced window ({span_ms:.3f} ms/frame device span, the traced host's calls span "
+          f"{host_ms:.4f} ms/frame), {idle_untraced:.3f} against the run's untraced device time "
+          f"{fused['device_ms_per_frame']} ms/frame; untraced host enqueue {fused['enqueue_ms_per_frame']} "
+          f"ms/frame from an idle card; klt_pyramid_kernel once in each of the {CHUNK} graph launches (device "
+          f"events per launch {events_per_replay[0]}-{events_per_replay[-1]}), "
+          f"{ms_klt_graph:.5f} ms each inside the graph ({card})", flush=True)
+    by_label: dict = {}
+    for name, a, b, _ in device_events:
+        ms, count = by_label.get(kernel_label(name), (0.0, 0))
+        by_label[kernel_label(name)] = (ms + (b - a) / 1e3 / CHUNK, count + 1)
+    top = sorted(by_label.items(), key=lambda kv: -kv[1][0])[:12]
+    print(f"fused: device events per frame in the traced chunk {len(device_events) / CHUNK:.1f}; largest by "
+          f"device ms/frame: " + "; ".join(f"{label} {ms:.3f} ms ({count / CHUNK:.1f}x)"
+                                          for label, (ms, count) in top) + f" ({card})", flush=True)
+
     print(json.dumps({"kernels": [{
         "name": "klt_track_pyramid",
         "route": "cuda",
         "source": "eqvio_tpu_torch/csrc/klt_cuda.cu",
         "replaces": "eqvio_tpu/frontend/pallas_klt.py:106",
         "launches": launches,
+        "launches_fused_chunk": len(klt),
+        "fused_chunk_frames": CHUNK,
+        "launches_fused_warmup": warmup_launches,
         "max_abs_err": max_err,
         "ms": ms_device,
+        "graph_replay_ms": ms_klt_graph,
         "device_ms": ms_device,
         "graph_ms": ms_graph,
         "host_ms": ms_host,

@@ -20,7 +20,7 @@ from .states import VIOSensorState, VIOState, split_coords_vector, state_coords_
 
 def _e3_like(v: torch.Tensor) -> torch.Tensor:
     e3 = torch.zeros_like(v)
-    e3[..., 2] = 1.0
+    e3[..., 2].fill_(1.0)
     return e3
 
 

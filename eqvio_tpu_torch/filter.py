@@ -36,7 +36,8 @@ from .group import (
 )
 from .lie import SE3, so3_from_vectors
 from .matrices import CoordinateSuite, get_suite
-from .states import IMU, SENSOR_DIM, VIOState, integrate_system, measure_system, state_identity
+from .runtime import const
+from .states import DUMMY_POINT, IMU, SENSOR_DIM, VIOState, integrate_system, measure_system, state_identity
 
 _NOT_PORTED = "is not ported yet (ROADMAP.md queue 1, 'other filter modes')"
 
@@ -119,13 +120,13 @@ class Settings:
             + [self.initial_camera_attitude_var] * 3
             + [self.initial_camera_position_var] * 3
         )
-        return torch.tensor(vals, dtype=dtype, device=device)
+        return const(tuple(vals), dtype, device)
 
     def initial_point_cov_diag(self, dtype: torch.dtype, device) -> torch.Tensor:
         d = [self.initial_point_var] * 3
         if self.initial_point_depth_var > 0:
             d[2] = self.initial_point_depth_var
-        return torch.tensor(d, dtype=dtype, device=device)
+        return const(tuple(d), dtype, device)
 
     def state_gain_diag(self, capacity: int, dtype: torch.dtype, device) -> torch.Tensor:
         vals = (
@@ -138,7 +139,7 @@ class Settings:
             + [self.camera_position_process_var] * 3
             + [self.point_process_var] * 3 * capacity
         )
-        return torch.tensor(vals, dtype=dtype, device=device)
+        return const(tuple(vals), dtype, device)
 
     def input_gain_diag(self, dtype: torch.dtype, device) -> torch.Tensor:
         vals = (
@@ -147,7 +148,7 @@ class Settings:
             + [self.vel_gyr_bias_walk**2] * 3
             + [self.vel_acc_bias_walk**2] * 3
         )
-        return torch.tensor(vals, dtype=dtype, device=device)
+        return const(tuple(vals), dtype, device)
 
 
 class EqFState(NamedTuple):
@@ -222,7 +223,7 @@ def initialize_attitude_from_imu(state: EqFState, imu: IMU) -> EqFState:
     """Gravity-aligned attitude initialisation from one IMU sample."""
     acc_dir = imu.acc / torch.clamp(torch.linalg.norm(imu.acc, dim=-1, keepdim=True), min=1e-9)
     e3 = torch.zeros_like(acc_dir)
-    e3[..., 2] = 1.0
+    e3[..., 2].fill_(1.0)
     R0 = so3_from_vectors(acc_dir, e3)
     xi0 = state.xi0._replace(
         sensor=state.xi0.sensor._replace(pose=SE3(R0, state.xi0.sensor.pose.x))
@@ -286,6 +287,15 @@ def integrate_riccati_fast(
 
 def _imu_at(imu: IMU, k: int) -> IMU:
     return IMU(imu.stamp[k], imu.gyr[k], imu.acc[k], imu.gyr_bias_vel[k], imu.acc_bias_vel[k])
+
+
+def predict_state(state: EqFState, imu_window: IMU, dts: torch.Tensor) -> VIOState:
+    """The state estimate integrated forward over an IMU window ``[K]`` (a
+    Python loop in place of ``lax.scan``); zero-dt entries are no-ops."""
+    xi = state_estimate(state)
+    for k in range(dts.shape[0]):
+        xi = integrate_system(xi, _imu_at(imu_window, k), dts[k])
+    return xi
 
 
 def propagate_window(
@@ -421,7 +431,7 @@ def remove_landmarks(state: EqFState, rm_mask: torch.Tensor, settings: Settings)
     """Deactivate slots: mask off, identity Q, dummy origin point, reset covariance."""
     keep = state.xi0.mask & ~rm_mask
     dtype, device = state.xi0.landmarks.dtype, state.xi0.landmarks.device
-    dummy = torch.tensor([0.0, 0.0, 1.0], dtype=dtype, device=device)
+    dummy = const(DUMMY_POINT, dtype, device)
     xi0 = state.xi0._replace(
         landmarks=torch.where(keep[:, None], state.xi0.landmarks, dummy),
         ids=torch.where(keep, state.xi0.ids, torch.full_like(state.xi0.ids, -1)),
@@ -445,7 +455,7 @@ def median_scene_depth(state: EqFState, settings: Settings, mask: torch.Tensor |
     d2_sorted = torch.sort(torch.where(mask, d2, torch.full_like(d2, 1e30))).values
     n_active = torch.sum(mask)
     idx = torch.clamp(n_active // 2, 0, xi_hat.capacity - 1)
-    med = torch.sqrt(d2_sorted[idx])
+    med = torch.sqrt(d2_sorted.index_select(0, idx.reshape(1))[0])
     return torch.where(n_active > 0, med, torch.full_like(med, settings.initial_scene_depth))
 
 
@@ -463,7 +473,7 @@ def add_landmarks(
     if settings.use_median_depth:
         depth = median_scene_depth(state, settings)
     else:
-        depth = torch.tensor(settings.initial_scene_depth, dtype=dtype, device=device)
+        depth = const(settings.initial_scene_depth, dtype, device)
     q_new = camera.undistort(pixels) * depth
     xi0 = state.xi0._replace(
         landmarks=torch.where(new_mask[:, None], q_new, state.xi0.landmarks),
@@ -539,10 +549,15 @@ def process_vision(
     camera,
     settings: Settings,
     suite: CoordinateSuite | None = None,
+    do_update: bool = True,
 ) -> EqFState:
     """Per-frame vision step: lost, outlier and scale-invalid removal, new
     landmarks, then the update with all covariance surgery folded into its
-    pre-array."""
+    pre-array.
+
+    ``do_update=False`` stops after the lifecycle stage and applies its
+    covariance surgery alone (no EqF update): the ``--timing`` calibration
+    times "preprocessing" with it."""
     if suite is None:
         suite = settings.suite
     xi0, X = state.xi0, state.X
@@ -566,9 +581,9 @@ def process_vision(
     if settings.use_median_depth:
         depth = median_scene_depth(state, settings, mask=kept)
     else:
-        depth = torch.tensor(settings.initial_scene_depth, dtype=dtype, device=device)
+        depth = const(settings.initial_scene_depth, dtype, device)
     q_new = camera.undistort(pixels) * depth
-    dummy = torch.tensor([0.0, 0.0, 1.0], dtype=dtype, device=device)
+    dummy = const(DUMMY_POINT, dtype, device)
     landmarks = torch.where(new[:, None], q_new, torch.where(kept[:, None], xi0.landmarks, dummy))
     ids_new = torch.where(new, ids, torch.where(kept, xi0.ids, torch.full_like(xi0.ids, -1)))
     xi0_new = xi0._replace(landmarks=landmarks, ids=ids_new, mask=kept | new)
@@ -591,6 +606,8 @@ def process_vision(
         ),
     )
     add_diag = torch.cat([torch.zeros_like(ones), add_lm.reshape(-1)])
+    if not do_update:
+        return state._replace(Sigma=_sqrt_mask_reset(state.Sigma, keep_vec, add_diag))
     vis_upd = (vis_tracked & kept) | new
     return update_vision(
         state, pixels, vis_upd, camera, settings, suite, surgery=(keep_vec, add_diag)

@@ -13,10 +13,12 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..runtime import const
+
 
 def _sep_filter(img: torch.Tensor, v_taps: tuple, h_taps: tuple) -> torch.Tensor:
-    kv = torch.tensor(v_taps, dtype=img.dtype, device=img.device)
-    kh = torch.tensor(h_taps, dtype=img.dtype, device=img.device)
+    kv = const(v_taps, img.dtype, img.device)
+    kh = const(h_taps, img.dtype, img.device)
     rv, rh = (len(v_taps) - 1) // 2, (len(h_taps) - 1) // 2
     x = F.conv2d(img[None, None], kv.view(1, 1, -1, 1), padding=(rv, 0))
     x = F.conv2d(x, kh.view(1, 1, 1, -1), padding=(0, rh))

@@ -15,6 +15,8 @@ uint32 values are carried in int64 tensors and masked with ``& 0xFFFFFFFF``
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 _M32 = 0xFFFFFFFF
@@ -39,8 +41,11 @@ def threefry2x32(k1, k2, x1, x2):
     return x1, x2
 
 
+@functools.cache
 def prng_key(seed: int, device) -> torch.Tensor:
-    """``jax.random.PRNGKey(seed)`` for a 32- or 64-bit unsigned seed."""
+    """``jax.random.PRNGKey(seed)`` for a 32- or 64-bit unsigned seed, built
+    once per ``(seed, device)``: a frame step folds the device-side counter
+    into it without a host-to-device copy.  Callers never write to it."""
     seed = int(seed)
     return torch.tensor([(seed >> 32) & _M32, seed & _M32], dtype=torch.int64, device=device)
 

@@ -12,12 +12,14 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..runtime import const
+
 _TAPS = (1 / 16, 4 / 16, 6 / 16, 4 / 16, 1 / 16)
 
 
 def blur_downsample(img: torch.Tensor) -> torch.Tensor:
     """``[H, W] -> [ceil(H/2), ceil(W/2)]``."""
-    taps = torch.tensor(_TAPS, dtype=img.dtype, device=img.device)
+    taps = const(_TAPS, img.dtype, img.device)
     x = F.conv2d(img[None, None], taps.view(1, 1, 5, 1), stride=(2, 1), padding=(2, 0))
     x = F.conv2d(x, taps.view(1, 1, 1, 5), stride=(1, 2), padding=(0, 2))
     return x[0, 0]

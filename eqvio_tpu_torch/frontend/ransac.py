@@ -14,6 +14,7 @@ import math
 
 import torch
 
+from ..runtime import const
 from .prng import uniform
 
 
@@ -28,7 +29,7 @@ def _normalize(pts: torch.Tensor, mask: torch.Tensor):
     c = torch.sum(pts * w[:, None], dim=0) / n
     d = _norm(pts - c)
     mean_d = torch.clamp(torch.sum(d * w) / n, min=1e-9)
-    s = torch.tensor(math.sqrt(2.0), dtype=pts.dtype, device=pts.device) / mean_d
+    s = const(math.sqrt(2.0), pts.dtype, pts.device) / mean_d
     return (pts - c) * s, s
 
 
@@ -157,7 +158,7 @@ def ransac_epipolar_mask(
     rho = torch.where(mask[None, :], torch.minimum(d2, thr2), torch.zeros_like(d2))
     best = torch.argmax(-torch.sum(rho, dim=-1))
 
-    w = ((d2[best] < thr2) & mask).to(p1n.dtype)
+    w = ((d2.index_select(0, best.reshape(1))[0] < thr2) & mask).to(p1n.dtype)
     A_all = _constraint_rows(p1n, p2n)
     G2 = torch.einsum("ni,nj->ij", A_all * w[:, None], A_all)
     F_lo = _rank2(smallest_eigvec(G2[None]).reshape(1, 3, 3))

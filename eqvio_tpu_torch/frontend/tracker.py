@@ -3,8 +3,13 @@
 gated Shi-Tomasi re-detection and slot refill under the fixed-capacity slot
 protocol the filter shares.
 
-The detector gate (``featureSearchThreshold``) is a host branch: detection
-runs only on frames whose live tracks fell below the threshold.
+The detector gate (``featureSearchThreshold``) is decided on the device, so
+a step has no host sync and a CUDA graph can capture it: the detector runs
+on every frame and its candidates count only on frames whose live tracks
+fell below the threshold.  That is what ``jax.vmap`` makes of the JAX
+package's ``lax.cond``, and the refill is the same as with the branch.  A
+threshold of 1 or more always searches and one of 0 or less never runs the
+detector; both are fixed by the config.
 """
 
 from __future__ import annotations
@@ -104,10 +109,11 @@ def tracker_step(
     mask = tracked
 
     N = config.max_features
-    searching = torch.ones((), dtype=torch.bool, device=device)
-    if config.feature_search_threshold < 1.0:
-        searching = torch.sum(mask) < config.feature_search_threshold * N
-    if bool(searching):
+    if config.feature_search_threshold <= 0.0:
+        searching = torch.zeros((), dtype=torch.bool, device=device)
+        cand_pos = torch.zeros(N, 2, dtype=positions.dtype, device=device)
+        cand_valid = torch.zeros(N, dtype=torch.bool, device=device)
+    else:
         cand_pos, cand_valid = detect_features(
             image,
             max_features=N,
@@ -118,9 +124,11 @@ def tracker_step(
             exclude_mask=mask,
             exclude_dist=config.tracked_feature_dist,
         )
-    else:
-        cand_pos = torch.zeros(N, 2, dtype=positions.dtype, device=device)
-        cand_valid = torch.zeros(N, dtype=torch.bool, device=device)
+        searching = torch.ones((), dtype=torch.bool, device=device)
+        if config.feature_search_threshold < 1.0:
+            searching = torch.sum(mask) < config.feature_search_threshold * N
+            cand_valid = cand_valid & searching
+            cand_pos = torch.where(searching, cand_pos, torch.zeros_like(cand_pos))
 
     # fill free slots in order with valid candidates; unassigned entries
     # target the spare row N of an N+1 buffer, which is then cut off

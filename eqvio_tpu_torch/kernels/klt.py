@@ -22,6 +22,7 @@ import functools
 import numpy as np
 import torch
 
+from ..runtime import const
 from . import build
 
 _SOURCE = "klt_cuda.cu"
@@ -67,8 +68,8 @@ def track_level(img_prev, img_next, pos_prev, guess, win: int, iters: int):
     offs = _window_offsets(win, dtype, pos_prev.device)
     coords = pos_prev[:, None, None, :] + offs
     template = bilinear(img_prev, coords)
-    ex = torch.tensor([1.0, 0.0], dtype=dtype, device=pos_prev.device)
-    ey = torch.tensor([0.0, 1.0], dtype=dtype, device=pos_prev.device)
+    ex = const((1.0, 0.0), dtype, pos_prev.device)
+    ey = const((0.0, 1.0), dtype, pos_prev.device)
     gx = bilinear(img_prev, coords + ex) - bilinear(img_prev, coords - ex)
     gy = bilinear(img_prev, coords + ey) - bilinear(img_prev, coords - ey)
     gxx = torch.sum(gx * gx, dim=(1, 2))
@@ -292,7 +293,10 @@ def klt_track_pyramid(pyr_prev, pyr_next, positions, guesses, win: int = 21, ite
     ``pyr_next`` starting at ``guesses``; returns ``(positions, err)``.
 
     CPU tensors take the plain version.  CUDA tensors launch the kernel on
-    the current stream and count the launch in ``klt_track_pyramid.launches``.
+    the current stream and count the launch in ``klt_track_pyramid.launches``;
+    a call during a CUDA graph capture only records the kernel into the
+    graph and is not counted (the graph's replays launch it; the profiler
+    counts those).
     """
     if positions.device.type == "cpu":
         return klt_track_pyramid_plain(pyr_prev, pyr_next, positions, guesses, win, iters)
@@ -318,7 +322,9 @@ def klt_track_pyramid(pyr_prev, pyr_next, positions, guesses, win: int = 21, ite
             rc = fn(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {rc}")
-    klt_track_pyramid.launches += 1
+    if not torch.cuda.is_current_stream_capturing():
+        # under capture the call records a graph node and launches nothing
+        klt_track_pyramid.launches += 1
     return out_pos, out_err
 
 

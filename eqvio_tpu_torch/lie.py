@@ -14,6 +14,8 @@ from typing import NamedTuple
 
 import torch
 
+from .runtime import const
+
 _SMALL = 1e-6
 
 
@@ -141,8 +143,8 @@ def so3_from_vectors(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     denom = torch.clamp(1.0 + c, min=1e-12)[..., None, None]
     R_general = eye3(a) + V + (V @ V) / denom
 
-    ex = torch.tensor([1.0, 0.0, 0.0], dtype=a.dtype, device=a.device)
-    ey = torch.tensor([0.0, 1.0, 0.0], dtype=a.dtype, device=a.device)
+    ex = const((1.0, 0.0, 0.0), a.dtype, a.device)
+    ey = const((0.0, 1.0, 0.0), a.dtype, a.device)
     helper = torch.where((torch.abs(an[..., 0]) < 0.9)[..., None], ex, ey)
     ortho = cross(an, helper)
     ortho = ortho / torch.clamp(torch.linalg.norm(ortho, dim=-1, keepdim=True), min=1e-30)

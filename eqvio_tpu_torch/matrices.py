@@ -134,7 +134,7 @@ def output_matrix_Ci_star_euclid(q0, Q: SOT3, camera, y_pixels) -> torch.Tensor:
     y_tru = camera.undistort(y_pixels)
     AdQinv = torch.zeros(*Q.R.shape[:-2], 4, 4, dtype=Q.R.dtype, device=Q.R.device)
     AdQinv[..., 0:3, 0:3] = Qinv_R
-    AdQinv[..., 3, 3] = 1.0
+    AdQinv[..., 3, 3].fill_(1.0)
     return 0.5 * (_DRho(y_tru, camera) + _DRho(y_hat, camera)) @ AdQinv @ m2g
 
 

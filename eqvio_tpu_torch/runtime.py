@@ -15,6 +15,7 @@ finite); the image front end is float32 everywhere.
 
 from __future__ import annotations
 
+import functools
 import os
 
 import torch
@@ -38,6 +39,19 @@ def configure_runtime(device: str = "cuda") -> tuple[torch.device, torch.dtype]:
     if debug_nans():
         torch.autograd.set_detect_anomaly(True)
     return dev, (torch.float64 if dev.type == "cpu" else torch.float32)
+
+
+@functools.cache
+def const(values, dtype: torch.dtype, device) -> torch.Tensor:
+    """The tensor of ``values`` (a number or a nested tuple) on ``device``,
+    built once per ``(values, dtype, device)``.
+
+    A frame step that builds a tensor from Python data makes a host-to-device
+    copy each time, which a CUDA graph cannot capture; the step takes its
+    constants from here instead, so only the first (warm-up) call copies.
+    Callers never write to the result.
+    """
+    return torch.tensor(values, dtype=dtype, device=device)
 
 
 def debug_nans() -> bool:

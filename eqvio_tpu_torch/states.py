@@ -85,7 +85,7 @@ def imu_minus_bias(imu: IMU, bias: torch.Tensor):
 
 def _gravity_vec(like: torch.Tensor) -> torch.Tensor:
     g = torch.zeros_like(like)
-    g[..., 2] = -GRAVITY
+    g[..., 2].fill_(-GRAVITY)
     return g
 
 

@@ -12,9 +12,12 @@ import numpy as np
 import pytest
 import torch
 
-from eqvio_tpu_torch.data import SyntheticASLReader, shifted_texture_pair
+from eqvio_tpu_torch.app import run_opt as R
+from eqvio_tpu_torch.data import DataServer, SyntheticASLReader, shifted_texture_pair
 from eqvio_tpu_torch.frontend import build_pyramid, tracker
+from eqvio_tpu_torch.io import bench_config
 from eqvio_tpu_torch.kernels import klt as K
+from eqvio_tpu_torch.runtime import configure_runtime
 
 WIN, ITERS, LEVELS = 21, 8, 4
 
@@ -140,3 +143,91 @@ def test_tracker_step_on_card_matches_cpu(cuda_device):
         assert torch.equal(s_gpu.ids.cpu(), s_cpu.ids)
         torch.testing.assert_close(s_gpu.positions.cpu(), s_cpu.positions, atol=1e-3, rtol=0)
     assert K.klt_track_pyramid.launches == before + 3
+
+
+def fused_inputs(reader, config, frames: int, device: str, dtype=torch.float32):
+    """The fused path's inputs for the first ``frames`` frames, assembled and
+    packed as ``run_dataset`` does: ``(uint8 images [T, H, W], meta [T, 8K+2],
+    attitude-initialised state, tracker, settings, tracker config, camera,
+    K)``, the images and meta on ``device``."""
+    dev, _ = configure_runtime(device)
+    settings, tcfg, camera, state, trk, win = R._setup(reader, config, dtype, dev)
+    imgs, metas = [], []
+    for state, stamp, im, window in R._fused_frames(DataServer(reader), state, win, dtype, dev,
+                                                    {"iter": 0.0, "asm": 0.0}):
+        row = np.zeros(R._meta_width(win))
+        R._pack_meta(row, window, stamp)
+        imgs.append(im)
+        metas.append(row)
+        if len(imgs) >= frames:
+            break
+    return (torch.as_tensor(np.stack(imgs)).to(dev), torch.as_tensor(np.stack(metas), dtype=dtype).to(dev),
+            state, trk, settings, tcfg, camera, win)
+
+
+def _fused_case(device, frames: int = 10):
+    """The fused path's inputs for ``frames`` frames of a small scene on the
+    card, and a chunk runner from its attitude-initialised state."""
+    reader = SyntheticASLReader(end_time=2.0, width=320, height=240, frame_freq=10.0, num_points=300)
+    imgs, meta, state, trk, settings, tcfg, camera, win = fused_inputs(reader, bench_config(), frames, "cuda")
+    runner = R.ChunkRunner(tcfg, settings, settings.suite, camera, win, torch.float32, state, trk, device)
+    step = R._make_frame_fn(tcfg, settings, settings.suite, camera, win, torch.float32)
+    return imgs, meta, runner, step, (state, trk), tcfg.max_features
+
+
+@pytest.mark.cuda
+def test_graph_replay_matches_eager_steps(cuda_device):
+    """Ten frames replayed from the captured graph equal the same frame step
+    run eagerly on the card: the same tracked ids and masks, positions
+    within 1e-5 m (the same float32 kernels run in both; round-off only).
+    The KLT wrapper counts the eager warm-up launches alone: the capture
+    records the kernel and the replays launch it outside the wrapper."""
+    imgs, meta, runner, step, carry, N = _fused_case(cuda_device)
+    before = K.klt_track_pyramid.launches
+    outs = runner.run(imgs, meta)
+    assert runner.step.graph is not None and runner.step.pool_bytes >= 0
+    assert K.klt_track_pyramid.launches == before + R.WARMUP_STEPS
+    for i in range(imgs.shape[0]):
+        carry, ref = step(carry, imgs[i], meta[i])
+        assert torch.equal(outs[i, 34 + 7 * N:], ref[34 + 7 * N:]), f"frame {i} ids or masks"
+        assert torch.equal(outs[i, 34 + 3 * N:34 + 5 * N], ref[34 + 3 * N:34 + 5 * N]), f"frame {i} landmarks"
+        torch.testing.assert_close(outs[i, 9:12], ref[9:12], atol=1e-5, rtol=0)
+    assert int(outs[-1, 34 + 8 * N:].sum()) >= 10
+
+
+@pytest.mark.cuda
+def test_replay_runs_without_host_sync(cuda_device):
+    """After the capture, a chunk's replays and copies run under
+    ``set_sync_debug_mode("error")``, which raises on any synchronising call."""
+    imgs, meta, runner, _, _, _ = _fused_case(cuda_device, frames=6)
+    runner.run(imgs[:2], meta[:2])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = runner.run(imgs[2:], meta[2:])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(outs).all())
+
+
+@pytest.mark.cuda
+def test_failed_capture_raises(cuda_device, monkeypatch):
+    """A step that syncs the host runs eagerly in the warm-up, but its
+    capture fails, and the runner raises instead of running eagerly."""
+    real = R._make_frame_fn
+
+    def with_host_sync(*args):
+        fn = real(*args)
+
+        def frame_fn(carry, img, meta):
+            carry, out = fn(carry, img, meta)
+            out.sum().item()  # a host sync: a CUDA graph cannot capture it
+            return carry, out
+        return frame_fn
+
+    monkeypatch.setattr(R, "_make_frame_fn", with_host_sync)
+    imgs, meta, runner, _, _, _ = _fused_case(cuda_device, frames=2)
+    with pytest.raises(RuntimeError):
+        runner.run(imgs, meta)
+    assert runner.step.graph is None

@@ -3,7 +3,8 @@
 
 Both runs use the template config with the benchmark's algorithm switches
 (``io.config.bench_config``) in float64 on the CPU for 20 frames; the JAX
-side takes the per-frame path (``chunk_size=1``).  Every row the two writers
+side takes the per-frame path (``chunk_size=1``), the port its default, the
+fused chunk path.  Every row the two writers
 receive is recorded at full precision: positions must agree to 1e-6 m, the
 tracked feature ids exactly and their pixels to 1e-3 px.
 """
@@ -13,6 +14,7 @@ import os
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 import eqvio_tpu.app.run_opt as jax_run_opt
 import eqvio_tpu_torch.app.run_opt as torch_run_opt
@@ -29,6 +31,18 @@ from eqvio_tpu_torch.io import bench_config, template_config
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCENE = dict(end_time=4.0, width=320, height=240, frame_freq=10.0, num_points=300)
 FRAMES = 20
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Run the port on one CPU thread per test worker.  Its tensors are
+    small, so torch's intra-op threads gain nothing, and the workers share
+    the machine's cores: their threads together would oversubscribe it and
+    slow every op many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
