@@ -14,13 +14,17 @@ Phases, each printing one line; any failure exits nonzero before the result:
    card in float32, max |dpos| <= 2e-4 px over tracked features and
    identical tracked masks, on (a) a frame pair of the in-memory benchmark
    scene (752x480, 4-level pyramids, 30 detected corners plus 8 within 12 px
-   of the borders, ``eqvio_tpu_torch/kernels/klt_bench.py``) and (b) a
+   of the borders, ``eqvio_tpu_torch/kernels/klt_bench.py``), (b) a
    textured pair moved by (48, -40) px tracked from a zero-motion guess,
-   whose coarsest-level iterates travel more than 3 px.  Then, at the main
-   path's shape (the 30 corners): the kernel's device time per launch from
-   ``torch.profiler`` (and from the replay of 50 launches captured in one
-   CUDA graph), the wrapper's host time per call, the plain version's time,
-   and the bound.
+   whose coarsest-level iterates travel more than 3 px, and (c) frames 100
+   and 101 of the racing proxy (``data.racing_proxy``: 640x480 fisheye,
+   equalised) with its 40 detected corners and ``maxError`` 100.  Then, at
+   the main path's shape (the 30 corners): the kernel's device time per
+   launch from ``torch.profiler`` (and from the replay of 50 launches
+   captured in one CUDA graph), the wrapper's host time per call, the plain
+   version's time, and the bound; and the same at the racing shape.  The
+   racing scene (60 s, 1800 frames) is built once, before this phase, and
+   shared with phase 7.
 4. slice: the eager per-frame ``run_dataset(chunk_size=1)`` on ``cuda``
    (float32) over the benchmark scene cut
    to 8 s (>= 100 frames): finite and healthy, >= 10 landmarks, one KLT
@@ -35,7 +39,8 @@ Phases, each printing one line; any failure exits nonzero before the result:
    (phase 4) with positions within 1e-4 m, and within 0.05 m of the CPU
    float64 run (phase 5).  The run traces its chunk ``PROFILE_CHUNK`` alone
    (``profile_chunk``: from an idle card to the end of its device work);
-   the trace must show ``klt_pyramid_kernel`` once per frame, and the KLT
+   the trace must show ``klt_pyramid_kernel`` once in each graph launch
+   that the tracer recorded whole (:func:`traced_chunk`), and the KLT
    wrapper, which does not count calls made under capture, must count the
    eager warm-ups before each capture and nothing else.  Prints fused and
    eager ms/frame, the device ms/frame and host decomposition, and from the
@@ -46,6 +51,29 @@ Phases, each printing one line; any failure exits nonzero before the result:
    kernel's device time inside the graph and the largest device kernels per
    frame; the detector's device time, and the capture's seconds and
    graph-pool bytes.
+
+7. fisheye: the full 60 s racing proxy through ``run_dataset(chunk_size=16)``
+   on ``cuda`` in float32 (square-root covariance auto-enabled) with the
+   racing config (``io.racing_proxy_config``, ``configs/config_racing_proxy.yaml``)
+   and the ``--timing`` calibration: finite and healthy, >= 10 landmarks,
+   position RMSE <= 0.256 m after a similarity alignment; over the first 20
+   frames the same tracked ids as an eager card run with positions within
+   1e-4 m, and within 0.05 m of a CPU float64 run; one ``klt_pyramid_kernel``
+   per whole graph launch in its traced chunk.  The KLT wrapper's count is zeroed
+   before each card run: one launch per frame in the eager run, and in the
+   fused run exactly the eager warm-ups before its four captures.  Prints
+   fused ms/frame, device ms/frame and the stage sections.
+8. filter modes, on the benchmark scene with ``configs/config_template.yaml``'s
+   switches (Euclidean, accurate Riccati, discrete innovation lift, median
+   depth), fused on ``cuda``: (a) float64 with dense covariance over 32
+   frames, the first 20 against the CPU float64 run (same ids, positions
+   within 1e-4 m), with chunk 1 traced: one ``klt_pyramid_kernel`` per whole
+   graph launch; (b) float32 (square-root auto-enabled) over all 155 frames with
+   the ``--timing`` calibration: finite and healthy, ms/frame printed; (c)
+   the Normal suite and the discrete Riccati (``useDiscreteStateMatrix``),
+   20 frames each in float32: finite and healthy.  The KLT wrapper, zeroed
+   before each run, must count exactly the eager warm-ups before its
+   captures (one capture, four with ``--timing``).
 
 Then one JSON line with the kernels' numbers and, last, the result line
 ``{"ok": true, "device": {...}}``.
@@ -62,6 +90,9 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SCENE_SECONDS = 8.0
+RACING_SECONDS = 60.0
+RACING_GATE_M = 0.256  # 1.2x the JAX package's committed f32 square-root result, tests/test_proxy_slow.py
+MODE_FRAMES = 20  # frames of the phase-8 mode runs held against the CPU or checked for health
 CPU_FRAMES = 20
 KERNEL_TOL_PX = 2e-4
 CPU_TOL_M = 0.05
@@ -76,6 +107,8 @@ DEVICE_CATS = {"kernel", "gpu_memcpy", "gpu_memset"}  # a chrome trace's device 
 TRAVEL_PX = 3  # coarsest-level travel of the moved pair's tracks
 PROFILE_CHUNK = 2  # the fused run's chunk that is traced (chunk 0 holds the capture)
 PROFILE_DIR = os.path.join(HERE, "build", "smoke_profile")  # build/ is git-ignored
+RACING_PROFILE_DIR = os.path.join(PROFILE_DIR, "racing")
+DENSE_PROFILE_DIR = os.path.join(PROFILE_DIR, "dense")
 
 
 def fail(msg: str) -> None:
@@ -142,6 +175,65 @@ def trace_counts(path: str):
     return calls, device, [c for _, c in sorted(graphs)], max(b for _, b in host) - min(a for a, _ in host)
 
 
+def klt_in_graph_launches(device_events, replays):
+    """Per graph launch of a trace (a graph's kernels carry its launch's
+    correlation id): ``[device events, klt_pyramid_kernel launches]``, and
+    the KLT kernels' durations in us."""
+    per_replay = {c: [0, 0] for c in replays}
+    for name, _, _, c in device_events:
+        if c in per_replay:
+            per_replay[c][0] += 1
+            per_replay[c][1] += "klt_pyramid_kernel" in name
+    klt = [b - a for name, a, b, _ in device_events if "klt_pyramid_kernel" in name]
+    return list(per_replay.values()), klt
+
+
+def traced_chunk(name, summary, trace_dir, chunk):
+    """A fused run's chunk ``chunk`` traced alone (``profile_chunk``): it
+    must hold CHUNK frames and CHUNK graph launches.  Every launch replays
+    the one captured graph, so a launch whose trace holds the most device
+    events of any launch is complete, and each complete launch must show one
+    ``klt_pyramid_kernel``.  The tracer can lose the records at the start of
+    a trace (on the H100, up to 1,235 events of the first two launches), so
+    launches short of that count may lead the chunk, at most half of it,
+    with at most one KLT each.  Returns the host launch and copy calls by
+    name, the device events, ``[device events, KLT launches]`` per graph
+    launch, the KLT kernels' durations in us, the host calls' span in us,
+    and a note of the complete launches and the events lost."""
+    prof = summary.get("profile") or {}
+    if prof.get("chunk") != chunk or prof.get("frames") != CHUNK:
+        fail(f"{name}: chunk {chunk} of {CHUNK} frames was not traced ({prof})")
+    calls, events, replays, host_us = trace_counts(os.path.join(trace_dir, "trace.json"))
+    per_replay, klt = klt_in_graph_launches(events, replays)
+    full = max((n for n, _ in per_replay), default=0)
+    lead = next((i for i, (n, _) in enumerate(per_replay) if n == full), 0)
+    complete = per_replay[lead:]
+    if len(replays) != CHUNK or lead > CHUNK // 2 or any(n != full or k != 1 for n, k in complete) or \
+            any(k > 1 for _, k in per_replay[:lead]):
+        fail(f"{name}: the trace shows {len(replays)} graph launches for {CHUNK} frames, klt_pyramid_kernel "
+             f"launches per graph launch {[k for _, k in per_replay]}, {len(klt)} in all (device events per "
+             f"graph launch {[n for n, _ in per_replay]}, calls {calls})")
+    lost = [full - n for n, _ in per_replay[:lead]]
+    note = (f"klt_pyramid_kernel once in each of the {len(complete)} whole graph launches of {CHUNK} "
+            f"({full} device events each)")
+    if lead:
+        note += (f"; the tracer lost {lost} events at the start of the first {lead}, which show "
+                 f"{[k for _, k in per_replay[:lead]]} KLT launches")
+    return calls, events, per_replay, klt, host_us, note
+
+
+def check_run(name, state, summary, frames=None, min_landmarks=10):
+    """Finite state, healthy summary, enough landmarks (and ``frames`` frames)."""
+    import torch
+
+    finite = all(bool(torch.isfinite(t).all()) for t in (state.Sigma, state.X.A.R, state.X.A.x, state.X.Q.a,
+                                                         state.xi0.landmarks))
+    if not finite or not summary["healthy"] or summary["landmarks"] < min_landmarks or \
+            (frames is not None and summary["frames"] != frames):
+        fail(f"{name}: frames {summary['frames']} (expected {frames}), finite {finite}, healthy "
+             f"{summary['healthy']}, landmarks {summary['landmarks']}")
+
+
 def kernel_label(name: str) -> str:
     """A short label for a kernel's demangled name: its functor (``MulFunctor``)
     or the host function that launched it (``direct_copy_kernel_cuda``) where
@@ -155,6 +247,17 @@ def kernel_label(name: str) -> str:
         return launcher.group(1)
     bare = re.sub(r"^void |at::native::|\(anonymous namespace\)::", "", name.split("::type ")[-1])
     return re.split(r"[(<]", bare)[0] or name[:60]
+
+
+def largest_kernels(device_events, frames: int, k: int) -> str:
+    """The ``k`` kernel labels with the most device time per frame, with
+    their launches per frame."""
+    by_label: dict = {}
+    for name, a, b, _ in device_events:
+        ms, count = by_label.get(kernel_label(name), (0.0, 0))
+        by_label[kernel_label(name)] = (ms + (b - a) / 1e3 / frames, count + 1)
+    top = sorted(by_label.items(), key=lambda kv: -kv[1][0])[:k]
+    return "; ".join(f"{label} {ms:.3f} ms ({count / frames:.1f}x)" for label, (ms, count) in top)
 
 
 def busy_us(device_events) -> float:
@@ -191,9 +294,9 @@ def main() -> None:
           f"cuda {torch.version.cuda}", flush=True)
 
     from eqvio_tpu_torch.app.run_opt import run_dataset
-    from eqvio_tpu_torch.data import bench_scene, shifted_texture_pair
+    from eqvio_tpu_torch.data import bench_scene, racing_proxy, shifted_texture_pair
     from eqvio_tpu_torch.frontend import build_pyramid
-    from eqvio_tpu_torch.io import bench_config
+    from eqvio_tpu_torch.io import bench_config, racing_proxy_config, settings_from_config, template_config
     from eqvio_tpu_torch.kernels import klt as K
     from eqvio_tpu_torch.kernels import klt_bench as B
     from eqvio_tpu_torch.runtime import configure_runtime
@@ -208,6 +311,15 @@ def main() -> None:
                                  f"{p['smem_bytes']} B static smem" for name, p in ptxas.items())
                        or "no report beside the library"), flush=True)
 
+    # ---- the racing scene (set-up, shared by phases 3 and 7) ---------------
+    t0 = time.perf_counter()
+    racing = racing_proxy(RACING_SECONDS)
+    cfg_r = racing_proxy_config()
+    racing_build_s = time.perf_counter() - t0
+    print(f"scene: racing proxy, {len(racing.images.stamps)} frames of {racing.camera.resolution[0]}x"
+          f"{racing.camera.resolution[1]}, {len(racing.imu.stamps)} IMU samples, built on the host in "
+          f"{racing_build_s:.1f} s", flush=True)
+
     # ---- 3. kernel against plain, on the card -----------------------------
     reader = bench_scene(SCENE_SECONDS)
     cfg = bench_config()
@@ -221,12 +333,13 @@ def main() -> None:
     far = torch.tensor(np.random.default_rng(4).uniform([120, 100], [W - 120, H - 100], (30, 2)),
                        dtype=torch.float32, device=dev)
 
-    def gate(p, err):
+    def gate(p, err, shape, max_error):
+        h, w = shape
         margin = (win - 1) / 2 + 2
-        inside = (p[:, 0] >= margin) & (p[:, 0] < W - margin) & (p[:, 1] >= margin) & (p[:, 1] < H - margin)
-        return inside & (err < case.max_error)
+        inside = (p[:, 0] >= margin) & (p[:, 0] < w - margin) & (p[:, 1] >= margin) & (p[:, 1] < h - margin)
+        return inside & (err < max_error)
 
-    def hold(name, p0, p1, p, guess, min_tracked, truth=None):
+    def hold(name, p0, p1, p, guess, min_tracked, truth=None, max_error=case.max_error):
         """Kernel against plain: equal tracked masks; positions within
         KERNEL_TOL_PX where tracked (and, given ``truth``, where the plain
         track follows it within 0.05 px: a lost track that passes the
@@ -236,7 +349,7 @@ def main() -> None:
         pos_k, err_k = K.klt_track_pyramid(p0, p1, p, guess, win, iters)
         torch.cuda.synchronize()
         pos_p, err_p = K.klt_track_pyramid_plain(p0, p1, p, guess, win, iters)
-        ok_k, ok_p = gate(pos_k, err_k), gate(pos_p, err_p)
+        ok_k, ok_p = (gate(q, e, p0[0].shape, max_error) for q, e in ((pos_k, err_k), (pos_p, err_p)))
         if not torch.equal(ok_k, ok_p):
             fail(f"{name}: tracked masks differ: kernel {ok_k.tolist()} plain {ok_p.tolist()}")
         held = ok_k if truth is None else ok_k & ((pos_p - truth).norm(dim=1) < 0.05)
@@ -257,8 +370,11 @@ def main() -> None:
     err_bench, ok_bench, _, _ = hold("benchmark pair", pyr0, pyr1, pos, pos, 20)
     truth = far + torch.tensor(shift, dtype=torch.float32, device=dev)
     err_far, ok_far, n_out, spread = hold("moved pair", tpyr0, tpyr1, far, far, 20, truth)
-    if K.klt_track_pyramid.launches != 2:
-        fail(f"kernel: {K.klt_track_pyramid.launches} launches for 2 calls")
+    rcase = B.klt_case(dev, racing, config=cfg_r)
+    err_race, ok_race, _, _ = hold("racing pair", rcase.pyr0, rcase.pyr1, rcase.main, rcase.main, 30,
+                                   max_error=rcase.max_error)
+    if K.klt_track_pyramid.launches != 3:
+        fail(f"kernel: {K.klt_track_pyramid.launches} launches for 3 calls")
     top = levels - 1
     coarse, _ = K.track_level(tpyr0[top], tpyr1[top], far / 2**top, far / 2**top, win, iters)
     travelled = int((ok_far & ((coarse - far / 2**top).abs().max(1).values > TRAVEL_PX)).sum())
@@ -285,6 +401,20 @@ def main() -> None:
           f"(profiler {ms_prof}, graph replay {ms_graph:.5f}), host {ms_host:.5f} ms/call, plain "
           f"{ms_plain:.4f} ms, bound {ms_bound:.6f} ms ({bound_by}); {len(pos)} features: profiler "
           f"{pair_prof} ms ({card})", flush=True)
+    run_race = lambda: K.klt_track_pyramid(rcase.pyr0, rcase.pyr1, rcase.main, rcase.main, win, iters)  # noqa: E731
+    race_graph = B.graph_ms(run_race)
+    race_prof = B.profiler_ms(run_race, "klt_pyramid_kernel")
+    race_ms = race_prof if race_prof is not None else race_graph
+    race_plain = B.cuda_ms(lambda: K.klt_track_pyramid_plain(rcase.pyr0, rcase.pyr1, rcase.main, rcase.main,
+                                                             win, iters))
+    race_shapes = [tuple(p.shape) for p in rcase.pyr0]
+    race_bound, race_bound_by = K.bound_ms(len(rcase.main), race_shapes, win, iters)
+    rh, rw = race_shapes[0]
+    print(f"kernel: racing pair (equalised frames 100-101, maxError {rcase.max_error * 255:.1f}): max |dpos| "
+          f"{err_race:.3g} px over {int(ok_race.sum())} of {len(rcase.main)}, masks equal; {len(rcase.main)} "
+          f"features x {levels} levels at {rw}x{rh}: device {race_ms:.5f} ms (profiler {race_prof}, graph replay "
+          f"{race_graph:.5f}), plain {race_plain:.4f} ms, bound {race_bound:.6f} ms ({race_bound_by}) ({card})",
+          flush=True)
 
     # ---- 4. the slice on the card ----------------------------------------
     run_dataset(reader, cfg, device="cuda", chunk_size=1, limit_frames=5)  # warm-up: library handles, allocator
@@ -360,22 +490,8 @@ def main() -> None:
 
     # chunk PROFILE_CHUNK of this run, traced alone from an idle card: launches,
     # idle share, the KLT inside the graph
-    prof = fused.get("profile") or {}
-    if prof.get("chunk") != PROFILE_CHUNK or prof.get("frames") != CHUNK:
-        fail(f"fused: chunk {PROFILE_CHUNK} of {CHUNK} frames was not traced ({prof})")
-    calls, device_events, replays, host_us = trace_counts(os.path.join(PROFILE_DIR, "trace.json"))
-    per_replay = {c: [0, 0] for c in replays}  # device events, KLT launches
-    for name, _, _, c in device_events:
-        if c in per_replay:
-            per_replay[c][0] += 1
-            per_replay[c][1] += "klt_pyramid_kernel" in name
-    events_per_replay = sorted(n for n, _ in per_replay.values())
-    klt_per_replay = [k for _, k in per_replay.values()]
-    klt = [b - a for name, a, b, _ in device_events if "klt_pyramid_kernel" in name]
-    if len(replays) != CHUNK or klt_per_replay != [1] * CHUNK or len(klt) != CHUNK:
-        fail(f"fused: the trace shows {len(replays)} graph launches for {CHUNK} frames, klt_pyramid_kernel "
-             f"launches per graph launch {klt_per_replay}, {len(klt)} in all (device events per graph launch "
-             f"{events_per_replay}, calls {calls})")
+    prof = fused["profile"]
+    calls, device_events, _, klt, host_us, klt_note = traced_chunk("fused", fused, PROFILE_DIR, PROFILE_CHUNK)
     ms_klt_graph = sum(klt) / len(klt) / 1e3
     span_ms = (max(e[2] for e in device_events) - min(e[1] for e in device_events)) / 1e3 / CHUNK
     busy_ms = busy_us(device_events) / 1e3 / CHUNK
@@ -413,17 +529,134 @@ def main() -> None:
           f"{idle:.3f} over the traced window ({span_ms:.3f} ms/frame device span, the traced host's calls span "
           f"{host_ms:.4f} ms/frame), {idle_untraced:.3f} against the run's untraced device time "
           f"{fused['device_ms_per_frame']} ms/frame; untraced host enqueue {fused['enqueue_ms_per_frame']} "
-          f"ms/frame from an idle card; klt_pyramid_kernel once in each of the {CHUNK} graph launches (device "
-          f"events per launch {events_per_replay[0]}-{events_per_replay[-1]}), "
-          f"{ms_klt_graph:.5f} ms each inside the graph ({card})", flush=True)
-    by_label: dict = {}
-    for name, a, b, _ in device_events:
-        ms, count = by_label.get(kernel_label(name), (0.0, 0))
-        by_label[kernel_label(name)] = (ms + (b - a) / 1e3 / CHUNK, count + 1)
-    top = sorted(by_label.items(), key=lambda kv: -kv[1][0])[:12]
+          f"ms/frame from an idle card; {klt_note}, {ms_klt_graph:.5f} ms each inside the graph ({card})",
+          flush=True)
     print(f"fused: device events per frame in the traced chunk {len(device_events) / CHUNK:.1f}; largest by "
-          f"device ms/frame: " + "; ".join(f"{label} {ms:.3f} ms ({count / CHUNK:.1f}x)"
-                                          for label, (ms, count) in top) + f" ({card})", flush=True)
+          f"device ms/frame: {largest_kernels(device_events, CHUNK, 12)} ({card})", flush=True)
+
+    # ---- 7. fisheye: the racing proxy, fused ------------------------------
+    K.klt_track_pyramid.launches = 0
+    _, eager_r = run_dataset(racing, cfg_r, device="cuda", chunk_size=1, limit_frames=FUSED_FRAMES)
+    torch.cuda.synchronize()
+    launches_r = K.klt_track_pyramid.launches
+    if launches_r != FUSED_FRAMES:
+        fail(f"fisheye: {launches_r} KLT kernel launches for the eager run's {FUSED_FRAMES} frames")
+    K.klt_track_pyramid.launches = 0
+    t0 = time.perf_counter()
+    state_r, fused_r = run_dataset(racing, cfg_r, device="cuda", chunk_size=CHUNK, timing=True,
+                                   profile_dir=RACING_PROFILE_DIR, profile_chunk=PROFILE_CHUNK)
+    torch.cuda.synchronize()
+    wall_r = time.perf_counter() - t0
+    warmup_r = K.klt_track_pyramid.launches
+    _, cpu_r = run_dataset(racing, cfg_r, device="cpu", chunk_size=1, limit_frames=FUSED_FRAMES)
+    frames_r = fused_r["frames"]
+    check_run("fisheye", state_r, fused_r, frames=len(racing.images.stamps))
+    if warmup_r != WARMUP_STEPS * 4:
+        fail(f"fisheye: the KLT wrapper counted {warmup_r} eager launches in the fused run, not the "
+             f"{WARMUP_STEPS * 4} of the warm-ups before capture")
+    gt_r = racing.groundtruth
+    gt_pos_r = np.stack([np.interp(fused_r["stamps"], gt_r.stamps, gt_r.position[:, i]) for i in range(3)], -1)
+    rmse_r = umeyama_rmse(fused_r["positions"], gt_pos_r)
+    if not np.isfinite(rmse_r) or rmse_r > RACING_GATE_M:
+        fail(f"fisheye: position RMSE {rmse_r} m (gate {RACING_GATE_M})")
+    n = FUSED_FRAMES
+    if not np.array_equal(fused_r["stamps"][:n], eager_r["stamps"][:n]) or \
+            not np.array_equal(cpu_r["stamps"][:n], eager_r["stamps"][:n]):
+        fail("fisheye: the fused, eager and cpu runs' stamps differ")
+    if not np.array_equal(fused_r["feature_ids"][:n], eager_r["feature_ids"][:n]):
+        bad = int(np.argmax((fused_r["feature_ids"][:n] != eager_r["feature_ids"][:n]).any(1)))
+        fail(f"fisheye: tracked ids differ from the eager card run from frame {bad}")
+    diff_eager_r = float(np.abs(fused_r["positions"][:n] - eager_r["positions"][:n]).max())
+    diff_cpu_r = float(np.abs(fused_r["positions"][:n] - cpu_r["positions"][:n]).max())
+    if not np.isfinite(diff_eager_r) or diff_eager_r > FUSED_TOL_M:
+        fail(f"fisheye: max position difference to the eager card run {diff_eager_r} m (limit {FUSED_TOL_M})")
+    if not np.isfinite(diff_cpu_r) or diff_cpu_r > CPU_TOL_M:
+        fail(f"fisheye: max position difference to the cpu float64 run {diff_cpu_r} m (limit {CPU_TOL_M})")
+    prof_r = fused_r["profile"]
+    _, events_r, _, klt_r, _, klt_note_r = traced_chunk("fisheye", fused_r, RACING_PROFILE_DIR, PROFILE_CHUNK)
+    ms_fused_r = (wall_r - fused_r["setup_s"] - prof_r["s"]) * 1e3 / (frames_r - prof_r["frames"])
+    busy_r = busy_us(events_r) / 1e3 / CHUNK
+    idle_r = 1.0 - busy_r / fused_r["device_ms_per_frame"]
+    print(f"fisheye: racing proxy, {frames_r} frames on cuda f32 (square-root) in chunks of {CHUNK}: "
+          f"{ms_fused_r:.3f} ms/frame without the {fused_r['setup_s']:.2f} s of capture and calibration and the "
+          f"traced chunk's {prof_r['s']:.2f} s ({wall_r * 1e3 / frames_r:.3f} with them); device "
+          f"{fused_r['device_ms_per_frame']} ms/frame; position RMSE {rmse_r:.4f} m (sim(3)-aligned, gate "
+          f"{RACING_GATE_M}); {fused_r['landmarks']} landmarks; first {n} frames: ids equal to the eager card run, "
+          f"positions within {diff_eager_r:.3g} m of it and {diff_cpu_r:.3g} m of cpu f64; traced chunk: {klt_note_r}, "
+          f"{sum(klt_r) / len(klt_r) / 1e3:.5f} ms each; "
+          f"KLT wrapper {launches_r} launches in the eager run, {warmup_r} eager warm-ups in the fused run; "
+          f"scene built in {racing_build_s:.1f} s ({card})", flush=True)
+    print(f"fisheye: traced chunk {PROFILE_CHUNK}: device busy {busy_r:.3f} ms/frame, idle share {idle_r:.3f} against "
+          f"the run's untraced device time; {len(events_r) / CHUNK:.1f} device events per frame; largest by device "
+          f"ms/frame: {largest_kernels(events_r, CHUNK, 8)} ({card})", flush=True)
+    print(f"fisheye: device sections ms/frame {json.dumps(fused_r['device_sections_ms'])}; searched fraction "
+          f"{fused_r['searched_frame_fraction']}; graph capture {fused_r['graph']['capture_s']:.3f} s, pool "
+          f"{fused_r['graph']['pool_bytes']} bytes; host ms/frame {json.dumps(fused_r['host_ms_per_frame'])} "
+          f"({card})", flush=True)
+
+    # ---- 8. filter modes: the template config's switches, fused ----------
+    import copy
+
+    cfg_t = template_config()
+    # the KLT wrapper counts the eager warm-ups before each capture: the
+    # frame step's, and with timing also the three feature stages'
+    K.klt_track_pyramid.launches = 0
+    state_a, dense = run_dataset(reader, cfg_t, device="cuda", chunk_size=CHUNK, limit_frames=2 * CHUNK,
+                                 dtype=torch.float64, profile_dir=DENSE_PROFILE_DIR, profile_chunk=1)
+    launches_a = K.klt_track_pyramid.launches
+    _, cpu_a = run_dataset(reader, cfg_t, device="cpu", chunk_size=1, limit_frames=MODE_FRAMES)
+    check_run("modes (a) dense f64", state_a, dense, frames=2 * CHUNK)
+    if state_a.Sigma.dtype != torch.float64 or settings_from_config(cfg_t).sqrt_covariance or \
+            launches_a != WARMUP_STEPS:
+        fail(f"modes (a): Sigma {state_a.Sigma.dtype}, KLT wrapper {launches_a} eager launches (expected the "
+             f"{WARMUP_STEPS} warm-ups before capture)")
+    n = MODE_FRAMES
+    if not np.array_equal(dense["feature_ids"][:n], cpu_a["feature_ids"][:n]):
+        fail("modes (a): tracked ids differ from the cpu float64 run")
+    diff_a = float(np.abs(dense["positions"][:n] - cpu_a["positions"][:n]).max())
+    if not np.isfinite(diff_a) or diff_a > FUSED_TOL_M:
+        fail(f"modes (a): max position difference to the cpu float64 run {diff_a} m (limit {FUSED_TOL_M})")
+    klt_note_a = traced_chunk("modes (a)", dense, DENSE_PROFILE_DIR, 1)[-1]
+    print(f"modes (a): template config (Euclidean, accurate Riccati, discrete innovation lift, median depth), "
+          f"dense float64, fused on cuda over {2 * CHUNK} frames: first {n} frames' ids equal to the cpu float64 "
+          f"run, positions within {diff_a:.3g} m; device {dense.get('device_ms_per_frame')} ms/frame; graph "
+          f"capture {dense['graph']['capture_s']:.3f} s, pool {dense['graph']['pool_bytes']} bytes; KLT wrapper "
+          f"{launches_a} eager warm-ups; traced chunk 1: {klt_note_a} ({card})", flush=True)
+
+    K.klt_track_pyramid.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state_b, sqrt_b = run_dataset(reader, cfg_t, device="cuda", chunk_size=CHUNK, timing=True)
+    torch.cuda.synchronize()
+    wall_b = time.perf_counter() - t0
+    launches_b = K.klt_track_pyramid.launches
+    check_run("modes (b) square-root f32", state_b, sqrt_b, frames=frames)
+    if state_b.Sigma.dtype != torch.float32 or launches_b != WARMUP_STEPS * 4:
+        fail(f"modes (b): Sigma {state_b.Sigma.dtype}, KLT wrapper {launches_b} eager launches (expected the "
+             f"{WARMUP_STEPS * 4} warm-ups before capture)")
+    gt_pos_b = np.stack([np.interp(sqrt_b["stamps"], gt.stamps, gt.position[:, i]) for i in range(3)], -1)
+    rmse_b = umeyama_rmse(sqrt_b["positions"], gt_pos_b)
+    ms_b = (wall_b - sqrt_b["setup_s"]) * 1e3 / sqrt_b["frames"]
+    print(f"modes (b): template config, float32 square-root, fused on cuda over {sqrt_b['frames']} frames: "
+          f"{ms_b:.3f} ms/frame without the {sqrt_b['setup_s']:.2f} s of capture and calibration; device "
+          f"{sqrt_b['device_ms_per_frame']} ms/frame; sections {json.dumps(sqrt_b['device_sections_ms'])}; "
+          f"{sqrt_b['landmarks']} landmarks; position RMSE {rmse_b:.4f} m (sim(3)-aligned); graph capture "
+          f"{sqrt_b['graph']['capture_s']:.3f} s, pool {sqrt_b['graph']['pool_bytes']} bytes ({card})", flush=True)
+
+    for name, patch in (("normal", {"coordinateChoice": "Normal"}), ("discrete", {"useDiscreteStateMatrix": True})):
+        cfg_m = copy.deepcopy(cfg_t)
+        cfg_m["eqf"]["settings"].update(patch)
+        K.klt_track_pyramid.launches = 0
+        state_m, run_m = run_dataset(reader, cfg_m, device="cuda", chunk_size=CHUNK, limit_frames=MODE_FRAMES)
+        launches_m = K.klt_track_pyramid.launches
+        check_run(f"modes (c) {name}", state_m, run_m, frames=MODE_FRAMES)
+        if launches_m != WARMUP_STEPS:
+            fail(f"modes (c) {name}: KLT wrapper {launches_m} eager launches (expected the {WARMUP_STEPS} "
+                 f"warm-ups before capture)")
+        print(f"modes (c): template config with {json.dumps(patch)}, float32 square-root, fused on cuda over "
+              f"{MODE_FRAMES} frames: finite and healthy, {run_m['landmarks']} landmarks; device "
+              f"{run_m.get('device_ms_per_frame')} ms/frame; graph capture {run_m['graph']['capture_s']:.3f} s, "
+              f"pool {run_m['graph']['pool_bytes']} bytes ({card})", flush=True)
 
     print(json.dumps({"kernels": [{
         "name": "klt_track_pyramid",
@@ -443,6 +676,24 @@ def main() -> None:
         "plain_ms": ms_plain,
         "bound_ms": ms_bound,
         "bound_by": bound_by,
+        "library_ms": None,
+    }, {
+        "name": "klt_track_pyramid",
+        "shape": f"racing: {len(rcase.main)} features x {levels} levels at {rw}x{rh}, equalised",
+        "route": "cuda",
+        "source": "eqvio_tpu_torch/csrc/klt_cuda.cu",
+        "replaces": "eqvio_tpu/frontend/pallas_klt.py:106",
+        "launches": launches_r,
+        "launches_fused_chunk": len(klt_r),
+        "fused_chunk_frames": CHUNK,
+        "launches_fused_warmup": warmup_r,
+        "max_abs_err": err_race,
+        "ms": race_ms,
+        "graph_replay_ms": sum(klt_r) / len(klt_r) / 1e3,
+        "graph_ms": race_graph,
+        "plain_ms": race_plain,
+        "bound_ms": race_bound,
+        "bound_by": race_bound_by,
         "library_ms": None,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

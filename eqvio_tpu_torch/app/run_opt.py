@@ -14,8 +14,8 @@ update) -> CSV outputs.  ``chunk_size`` picks the loop, as in the JAX package:
 
 Usage:
     python -m eqvio_tpu_torch.app.run_opt <dataset_dir> <config.yaml>
-        [--device cuda|cpu] [--chunk C] [--output DIR] [--start T] [--stop T]
-        [--timing] [--limitRate HZ] [--profile DIR] [--f64]
+        [--mode asl|uzhfpv] [--device cuda|cpu] [--chunk C] [--output DIR]
+        [--start T] [--stop T] [--timing] [--limitRate HZ] [--profile DIR] [--f64]
 
 Not ported yet (``ROADMAP.md`` queue): checkpoint/resume, ``--simvis`` /
 ``--simimu``, the live view and the batched multi-sequence runner.  The JAX
@@ -39,7 +39,7 @@ import torch
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from .. import filter as F
-from ..camera import PinholeCamera, RadTanCamera
+from ..camera import EquidistantCamera, PinholeCamera, RadTanCamera
 from ..data import DataServer, create_dataset_reader
 from ..frontend import tracker_init, tracker_step
 from ..io import LoopTimer, VIOWriter, load_config, safe_get, settings_from_config, tracker_config_from_config
@@ -50,6 +50,7 @@ from ..states import IMU
 TIMING_LABELS = ["features", "propagation", "preprocessing", "correction", "total vision update",
                  "write output", "total"]
 WARMUP_STEPS = 2  # eager steps on a side stream before capture (library handles, allocator)
+TRACE_TAIL_S = 0.2  # a card trace stays open this long after its block's device work ends
 
 
 def _build_imu_window(imu_buf, t_prev, stamp, imu_window):
@@ -91,7 +92,7 @@ def camera_from_info(info, dtype: torch.dtype, device):
             return PinholeCamera.create(fx, fy, cx, cy, w, h, dtype=dtype, device=device)
         return RadTanCamera.create(fx, fy, cx, cy, info.distortion, w, h, dtype=dtype, device=device)
     if info.model == "equidistant":
-        raise NotImplementedError("the equidistant camera is not ported yet (ROADMAP.md queue 1)")
+        return EquidistantCamera.create(fx, fy, cx, cy, info.distortion, w, h, dtype=dtype, device=device)
     return PinholeCamera.create(fx, fy, cx, cy, w, h, dtype=dtype, device=device)
 
 
@@ -142,7 +143,11 @@ def _predicted_pixels(xi, camera, tracker):
 def _profiling(profile_dir: str | None, sync: torch.device | None = None):
     """A ``torch.profiler`` trace of the block, written to
     ``profile_dir/trace.json`` (a no-op without a directory).  With ``sync``
-    (a card), the block's device work is waited for before the trace ends."""
+    (a card), the block's device work is waited for, and the trace ends
+    ``TRACE_TAIL_S`` later: CUPTI hands over the last device records of a
+    graph launch late, and a trace stopped at the sync can lose thousands of
+    them.  Records at the start of a trace's first graph launch can be lost
+    all the same; a reader of the trace must allow for that."""
     if not profile_dir:
         yield
         return
@@ -154,6 +159,7 @@ def _profiling(profile_dir: str | None, sync: torch.device | None = None):
         yield
         if sync is not None:
             torch.cuda.synchronize(sync)
+            time.sleep(TRACE_TAIL_S)
     prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
 
 
@@ -176,8 +182,9 @@ def run_dataset(
 ):
     """Run the pipeline; returns ``(final EqFState, summary)``.
 
-    ``dataset`` is a dataset directory (read with ``mode``) or a reader
-    object with the ASL reader's interface.  ``start``/``stop`` are offsets
+    ``dataset`` is a dataset directory (read with ``mode``: ``asl`` or
+    ``uzhfpv``) or a reader object with the dataset readers' interface, such
+    as ``SyntheticASLReader`` or ``SyntheticUZHFPVReader``.  ``start``/``stop`` are offsets
     from the first data stamp.  ``chunk_size > 1`` takes the fused path,
     ``1`` the per-frame loop.  ``profile_dir`` traces the whole run; with
     ``profile_chunk`` (fused path only) it traces that chunk's dispatch
@@ -933,10 +940,10 @@ _NOT_PORTED_FLAGS = ("simvis", "simimu", "checkpoint_every", "resume", "live")
 
 
 def main(argv=None):
-    ap = argparse.ArgumentParser(description="EqVIO (PyTorch / CUDA port) on an ASL dataset")
+    ap = argparse.ArgumentParser(description="EqVIO (PyTorch / CUDA port) on an ASL or UZH-FPV dataset")
     ap.add_argument("dataset")
     ap.add_argument("config")
-    ap.add_argument("--mode", default="asl")
+    ap.add_argument("--mode", default="asl", help="dataset format: asl (EuRoC) or uzhfpv")
     ap.add_argument("--device", default="cuda", choices=["cpu", "cuda"],
                     help="cuda (the default) runs the filter in float32 with the CUDA KLT kernel; "
                          "cpu runs it in float64 with the kernel's plain version")

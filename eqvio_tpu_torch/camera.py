@@ -1,6 +1,5 @@
-"""Camera models (counterpart of ``eqvio_tpu/camera.py``): pinhole and
-radial-tangential.  The equidistant (fisheye) model waits for the fisheye
-front-end slice (``ROADMAP.md`` queue 1).
+"""Camera models (counterpart of ``eqvio_tpu/camera.py``): pinhole,
+radial-tangential and equidistant (Kannala-Brandt fisheye).
 
 Intrinsics are 0-dim tensors on the camera's device and dtype; every map is
 batched over leading axes.
@@ -11,6 +10,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from .lie import jacfwd
 
 _EPS = 1e-9
 
@@ -34,6 +35,13 @@ def _in_image(camera, p, ok):
             & (px[..., 1] < camera.height)
         )
     return ok
+
+
+def _auto_jacobian(project, p: torch.Tensor) -> torch.Tensor:
+    """Exact ``d project / d p`` by forward-mode AD (:func:`lie.jacfwd`):
+    ``[..., 2, 3]``."""
+    J = torch.func.vmap(lambda q: jacfwd(project, q))(p.reshape(-1, 3))
+    return J.reshape(*p.shape[:-1], 2, 3)
 
 
 def _scalar(v, dtype, device):
@@ -121,10 +129,60 @@ class RadTanCamera(NamedTuple):
         return _normalize(torch.cat([m, torch.ones_like(m[..., :1])], dim=-1))
 
     def projection_jacobian(self, p: torch.Tensor) -> torch.Tensor:
-        """Exact ``d project / d p`` by forward-mode AD: ``[..., 2, 3]``."""
-        flat = p.reshape(-1, 3)
-        J = torch.func.vmap(torch.func.jacfwd(self.project))(flat)
-        return J.reshape(*p.shape[:-1], 2, 3)
+        return _auto_jacobian(self.project, p)
 
     def is_in_domain(self, p: torch.Tensor) -> torch.Tensor:
         return _in_image(self, p, p[..., 2] > _EPS)
+
+
+class EquidistantCamera(NamedTuple):
+    """Kannala-Brandt equidistant fisheye with (k1, k2, k3, k4)."""
+
+    fx: torch.Tensor
+    fy: torch.Tensor
+    cx: torch.Tensor
+    cy: torch.Tensor
+    k1: torch.Tensor
+    k2: torch.Tensor
+    k3: torch.Tensor
+    k4: torch.Tensor
+    width: int = 0
+    height: int = 0
+
+    @staticmethod
+    def create(fx, fy, cx, cy, dist, width, height, dtype: torch.dtype, device) -> "EquidistantCamera":
+        s = lambda v: _scalar(v, dtype, device)  # noqa: E731
+        k1, k2, k3, k4 = (s(d) for d in dist)
+        return EquidistantCamera(s(fx), s(fy), s(cx), s(cy), k1, k2, k3, k4, int(width), int(height))
+
+    def _theta_d(self, theta):
+        t2 = theta * theta
+        return theta * (1.0 + t2 * (self.k1 + t2 * (self.k2 + t2 * (self.k3 + t2 * self.k4))))
+
+    def project(self, p: torch.Tensor) -> torch.Tensor:
+        m = p[..., 0:2] / _safe_z(p)[..., None]
+        r = torch.sqrt(torch.clamp(torch.sum(m * m, dim=-1), min=1e-18))
+        d = (self._theta_d(torch.atan(r)) / r)[..., None] * m
+        return torch.stack([self.fx * d[..., 0] + self.cx, self.fy * d[..., 1] + self.cy], dim=-1)
+
+    def undistort(self, px: torch.Tensor) -> torch.Tensor:
+        """Pixel -> unit bearing: 8 Newton steps on ``theta_d(theta) = r_d``."""
+        xd = (px[..., 0] - self.cx) / self.fx
+        yd = (px[..., 1] - self.cy) / self.fy
+        theta_d = torch.sqrt(torch.clamp(xd * xd + yd * yd, min=1e-18))
+        theta = theta_d
+        for _ in range(8):
+            t2 = theta * theta
+            f = theta * (1.0 + t2 * (self.k1 + t2 * (self.k2 + t2 * (self.k3 + t2 * self.k4)))) - theta_d
+            df = (1.0 + 3.0 * self.k1 * t2 + 5.0 * self.k2 * t2 * t2 + 7.0 * self.k3 * t2 * t2 * t2
+                  + 9.0 * self.k4 * t2 * t2 * t2 * t2)
+            theta = theta - f / torch.where(torch.abs(df) < 1e-9, torch.full_like(df, 1e-9), df)
+        scale = torch.sin(theta) / theta_d
+        return _normalize(torch.stack([xd * scale, yd * scale, torch.cos(theta)], dim=-1))
+
+    def projection_jacobian(self, p: torch.Tensor) -> torch.Tensor:
+        return _auto_jacobian(self.project, p)
+
+    def is_in_domain(self, p: torch.Tensor) -> torch.Tensor:
+        """In front of the lens within its >180 degree field, and in the image."""
+        return _in_image(self, p, p[..., 2] > -0.5 * torch.linalg.norm(p, dim=-1))

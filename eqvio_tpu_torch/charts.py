@@ -1,8 +1,8 @@
 """Coordinate charts for the VIO state manifold (counterpart of
-``eqvio_tpu/charts.py``): the stereographic sphere chart, the inverse-depth
-landmark chart, the standard sensor chart, and the invdepth/euclid
-differentials.  The normal charts wait with the Normal suite (``ROADMAP.md``
-queue 1).
+``eqvio_tpu/charts.py``): the stereographic and normal sphere charts, the
+Euclidean, inverse-depth and normal landmark charts, the standard and
+SE_2(3)-coupled normal sensor charts, the assembled state charts and the
+invdepth/euclid differentials.
 
 Convention: ``chart(xi, xi0) -> eps`` maps a state to local coordinates
 centred at ``xi0``; ``chart_inv(eps, xi0) -> xi`` inverts it.
@@ -14,7 +14,21 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from .lie import mv, se3_exp, se3_inv, se3_log, se3_mul, so3_from_vectors
+from .lie import (
+    SE3,
+    SE23,
+    cross,
+    mv,
+    se3_exp,
+    se3_inv,
+    se3_log,
+    se3_mul,
+    se23_exp,
+    se23_log,
+    so3_exp,
+    so3_from_vectors,
+)
+from .runtime import const
 from .states import VIOSensorState, VIOState, split_coords_vector, state_coords_vector
 
 
@@ -91,6 +105,46 @@ sphere_chart_stereo = EmbeddedChart(
 )
 
 
+def _normal_rot(pole):
+    return so3_from_vectors(pole, _e3_like(pole))
+
+
+def _normal_chart(eta, pole):
+    y = mv(_normal_rot(pole), eta)
+    c = cross(y, _e3_like(pole))
+    sin_th = torch.linalg.norm(c, dim=-1)
+    th = torch.atan2(sin_th, y[..., 2])
+    safe = torch.where(sin_th < 1e-30, torch.ones_like(sin_th), sin_th)
+    factor = torch.where(torch.abs(th) < 1e-8, torch.ones_like(th), th / safe)
+    return (c * factor[..., None])[..., 0:2]
+
+
+def _normal_chart_inv(eps, pole):
+    omega = torch.cat([eps, torch.zeros_like(eps[..., :1])], dim=-1)
+    y = mv(so3_exp(-omega), _e3_like(pole))
+    return mv(_normal_rot(pole).transpose(-1, -2), y)
+
+
+def _normal_diff0(pole):
+    return const(((0.0, 1.0, 0.0), (-1.0, 0.0, 0.0)), pole.dtype, pole.device) @ _normal_rot(pole)
+
+
+def _normal_inv_diff0(pole):
+    D = const(((0.0, -1.0), (1.0, 0.0), (0.0, 0.0)), pole.dtype, pole.device)
+    return _normal_rot(pole).transpose(-1, -2) @ D
+
+
+sphere_chart_normal = EmbeddedChart(_normal_chart, _normal_chart_inv, _normal_diff0, _normal_inv_diff0)
+
+
+def point_chart_euclid(p, p0):
+    return p - p0
+
+
+def point_chart_euclid_inv(eps, p0):
+    return p0 + eps
+
+
 def _bearing_invdepth(p):
     r = torch.clamp(torch.linalg.norm(p, dim=-1), min=1e-12)
     return p / r[..., None], 1.0 / r
@@ -109,6 +163,19 @@ def point_chart_invdepth_inv(eps, p0):
     rho = eps[..., 2] + rho0
     rho = torch.where(rho <= 0.0, torch.full_like(rho, 1e-6), rho)
     return y / rho[..., None]
+
+
+def point_chart_normal(p, p0):
+    y, rho = _bearing_invdepth(p)
+    y0, rho0 = _bearing_invdepth(p0)
+    eps_b = sphere_chart_normal.chart(y, y0)
+    return torch.cat([eps_b, torch.log(rho / rho0)[..., None]], dim=-1)
+
+
+def point_chart_normal_inv(eps, p0):
+    y0, rho0 = _bearing_invdepth(p0)
+    y = sphere_chart_normal.chart_inv(eps[..., 0:2], y0)
+    return y / (rho0 * torch.exp(eps[..., 2]))[..., None]
 
 
 def sensor_chart_std(xi: VIOSensorState, xi0: VIOSensorState) -> torch.Tensor:
@@ -130,6 +197,27 @@ def sensor_chart_std_inv(eps: torch.Tensor, xi0: VIOSensorState) -> VIOSensorSta
         velocity=xi0.velocity + eps[..., 12:15],
         camera_offset=se3_mul(xi0.camera_offset, se3_exp(eps[..., 15:21])),
     )
+
+
+def sensor_chart_normal(xi: VIOSensorState, xi0: VIOSensorState) -> torch.Tensor:
+    """Bias difference, the SE_2(3) log of the pose-velocity change and the
+    camera-offset change in the moving frame."""
+    A = se3_mul(se3_inv(xi0.pose), xi.pose)
+    v_xi0 = mv(xi0.pose.R, xi0.velocity)
+    v_A = mv(xi0.pose.R.transpose(-1, -2), mv(xi.pose.R, xi.velocity) - v_xi0)
+    B = se3_mul(se3_inv(xi0.camera_offset), se3_mul(A, xi.camera_offset))
+    return torch.cat([xi.bias - xi0.bias, se23_log(SE23(A.R, A.x, v_A)), se3_log(B)], dim=-1)
+
+
+def sensor_chart_normal_inv(eps: torch.Tensor, xi0: VIOSensorState) -> VIOSensorState:
+    ext = se23_exp(eps[..., 6:15])
+    A = SE3(ext.R, ext.x1)
+    pose = se3_mul(xi0.pose, A)
+    v_xi0 = mv(xi0.pose.R, xi0.velocity)
+    velocity = mv(pose.R.transpose(-1, -2), v_xi0 + mv(xi0.pose.R, ext.x2))
+    camera_offset = se3_mul(se3_inv(A), se3_mul(xi0.camera_offset, se3_exp(eps[..., 15:21])))
+    return VIOSensorState(bias=xi0.bias + eps[..., 0:6], pose=pose, velocity=velocity,
+                          camera_offset=camera_offset)
 
 
 class StateChart(NamedTuple):
@@ -155,9 +243,21 @@ def _make_state_chart(sensor_fwd, sensor_inv, point_fwd, point_inv) -> StateChar
     return StateChart(chart, chart_inv)
 
 
+state_chart_euclid = _make_state_chart(
+    sensor_chart_std, sensor_chart_std_inv, point_chart_euclid, point_chart_euclid_inv
+)
 state_chart_invdepth = _make_state_chart(
     sensor_chart_std, sensor_chart_std_inv, point_chart_invdepth, point_chart_invdepth_inv
 )
+state_chart_normal = _make_state_chart(
+    sensor_chart_normal, sensor_chart_normal_inv, point_chart_normal, point_chart_normal_inv
+)
+
+STATE_CHARTS = {
+    "euclid": state_chart_euclid,
+    "invdepth": state_chart_invdepth,
+    "normal": state_chart_normal,
+}
 
 
 def invdepth_euclid_block(p0: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,7 @@
 """Stamp-ordered measurement stream with a background image decoder
-(counterpart of the ASL branch of ``eqvio_tpu/data/server.py``).
+(counterpart of ``eqvio_tpu/data/server.py``).  The ASL and UZH-FPV readers
+are ported; the ANU, rosbag and Hilti readers and the native PNG loader are
+not yet (``ROADMAP.md`` queue 1).
 """
 
 from __future__ import annotations
@@ -20,15 +22,23 @@ class Measurement(NamedTuple):
 
 def create_dataset_reader(mode: str, dataset_dir: str, camera_yaml: str | None = None,
                           camera_lag: float = 0.0):
-    """Reader for ``mode`` (``asl``/``euroc``); ``camera_lag`` shifts image
-    stamps earlier by the image-vs-IMU latency."""
-    if mode.lower() not in ("asl", "euroc"):
+    """Reader for ``mode`` (``asl``/``euroc`` or ``uzhfpv``/``uzh``);
+    ``camera_lag`` shifts image stamps earlier by the image-vs-IMU latency."""
+    from .asl import ASLDatasetReader, ImageSeq
+
+    mode = mode.lower()
+    if mode in ("asl", "euroc"):
+        reader = ASLDatasetReader(dataset_dir, camera_yaml)
+    elif mode in ("uzhfpv", "uzh"):
+        from .uzhfpv import UZHFPVDatasetReader
+
+        reader = UZHFPVDatasetReader(dataset_dir, camera_yaml)
+    elif mode in ("anu", "ap", "ros", "rosbag", "hilti"):
         raise NotImplementedError(
             f"dataset mode {mode!r} is not ported yet (ROADMAP.md queue 1, other readers)"
         )
-    from .asl import ASLDatasetReader, ImageSeq
-
-    reader = ASLDatasetReader(dataset_dir, camera_yaml)
+    else:
+        raise ValueError(f"unknown dataset mode {mode!r} (use asl | uzhfpv | anu | rosbag | hilti)")
     if camera_lag:
         reader.images = ImageSeq(reader.images.stamps - camera_lag, reader.images.paths)
     return reader

@@ -1,14 +1,18 @@
-"""In-memory synthetic ASL scene (counterpart of
-``eqvio_tpu/data/synthetic.py:generate_asl_dataset``).
+"""In-memory synthetic scenes (counterpart of
+``eqvio_tpu/data/synthetic.py``'s ``generate_asl_dataset``,
+``generate_uzhfpv_dataset`` and ``generate_racing_proxy``).
 
-:class:`SyntheticASLReader` renders the simulator's world points into frames
-and serves them, with IMU rows and ground truth, through the ASL reader's
-interface (``camera``, ``imu``, ``images``, ``groundtruth``,
-``load_image_u8``) without writing files, so it needs neither PIL nor
-PyYAML.  Every value passes through the same quantisation as the reference's
-CSV round trip (integer-nanosecond stamps, 9-decimal IMU and ground-truth
-rows, uint8 frames), so for the same arguments it serves what
-``ASLDatasetReader`` reads back from ``generate_asl_dataset``'s tree.
+:class:`SyntheticASLReader` and :class:`SyntheticUZHFPVReader` render the
+simulator's world points into frames and serve them, with IMU rows and ground
+truth, through the dataset readers' interface (``camera``, ``imu``,
+``images``, ``groundtruth``, ``load_image_u8``) without writing files, so
+they need neither PIL nor PyYAML.  Every value passes through the same
+quantisation as the JAX package's file round trip (integer-nanosecond or
+9-decimal stamps, 9-decimal IMU and ground-truth rows, uint8 frames, the
+camchain's inverted ``T_cam_imu``), and the random draws come in the same
+order (IMU noise, then each frame's render noise), so for the same arguments
+they serve what ``ASLDatasetReader`` and ``UZHFPVDatasetReader`` read back
+from the JAX generators' trees.
 """
 
 from __future__ import annotations
@@ -16,18 +20,18 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..camera import RadTanCamera
+from ..camera import EquidistantCamera, RadTanCamera
 from ..io.writer import rotation_to_quaternion
 from ..lie import mv, se3_inv, se3_mul
 from ..sim import Simulator
 from .asl import CameraInfo, GroundTruth, ImageSeq, IMUSeq
 
 
-def _render(points_px, visible, w, h, rng, amp, width) -> np.ndarray:
+def _render(points_px, visible, w, h, rng, amp, width, grid) -> np.ndarray:
     """Visible points as 2-D gaussian blobs of per-point amplitude and width,
-    plus mild noise."""
+    plus mild noise; ``grid`` is ``np.mgrid[0:h, 0:w]`` in float32."""
     img = np.zeros((h, w), dtype=np.float32)
-    ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
+    ys, xs = grid
     for i, ((x, y), v) in enumerate(zip(points_px, visible)):
         if v and 2 < x < w - 2 and 2 < y < h - 2:
             a, s2 = float(amp[i]), float(width[i])
@@ -54,6 +58,37 @@ def _csv9(values: np.ndarray) -> np.ndarray:
     return np.vectorize(lambda v: float(f"{v:.9f}"))(np.asarray(values, dtype=np.float64))
 
 
+def _noisy_imu(sim, imu_times, imu_freq, imu_noise, rng):
+    """IMU by pose differentiation, plus white noise at ``density *
+    sqrt(f)`` and integrated bias walks when ``imu_noise`` is given
+    (``{"gyr", "acc", "gyrBias", "accBias"}``)."""
+    gyr, acc = (v.numpy() for v in sim.get_imu_batch(torch.as_tensor(imu_times, dtype=torch.float64)))
+    if imu_noise is not None:
+        n, sqf = len(imu_times), float(np.sqrt(imu_freq))
+        gyr = gyr + rng.normal(scale=imu_noise["gyr"] * sqf, size=(n, 3))
+        acc = acc + rng.normal(scale=imu_noise["acc"] * sqf, size=(n, 3))
+        sqdt = float(np.sqrt(1.0 / imu_freq))
+        gyr += np.cumsum(rng.normal(scale=imu_noise["gyrBias"] * sqdt, size=(n, 3)), axis=0)
+        acc += np.cumsum(rng.normal(scale=imu_noise["accBias"] * sqdt, size=(n, 3)), axis=0)
+    return gyr, acc
+
+
+def _render_frames(sim, cam, frame_times, width, height, rng, amp, blob_w) -> list:
+    """uint8 frames of the world points seen through ``cam`` at ``frame_times``."""
+    grid = np.mgrid[0:height, 0:width].astype(np.float32)
+    frames = []
+    for t in frame_times:
+        pose = sim.interpolate_pose(torch.tensor(t, dtype=torch.float64))
+        cam_inv = se3_inv(se3_mul(pose, sim.camera_offset))
+        pts = mv(cam_inv.R, sim.world) + cam_inv.x
+        px = cam.project(pts).numpy()
+        z = pts[:, 2].numpy()
+        vis = (z > 0.1) & (px[:, 0] > 0) & (px[:, 0] < width) & (px[:, 1] > 0) & (px[:, 1] < height)
+        img = _render(px, vis, width, height, rng, amp, blob_w, grid)
+        frames.append((img * 255).astype(np.uint8))
+    return frames
+
+
 class SyntheticASLReader:
     """The synthetic scene of ``generate_asl_dataset`` (no IMU noise, no
     distractors, zero distortion), served from memory."""
@@ -73,8 +108,8 @@ class SyntheticASLReader:
         t0 = 0.2
 
         imu_times = np.arange(t0, end_time, 1.0 / imu_freq)
-        gyr, acc = sim.get_imu_batch(torch.as_tensor(imu_times, dtype=f64))
-        self.imu = IMUSeq(_ns_stamps(imu_times), _csv9(gyr.numpy()), _csv9(acc.numpy()))
+        gyr, acc = _noisy_imu(sim, imu_times, imu_freq, None, rng)
+        self.imu = IMUSeq(_ns_stamps(imu_times), _csv9(gyr), _csv9(acc))
 
         T_BS = np.eye(4)
         T_BS[:3, :3] = sim.camera_offset.R.numpy()
@@ -82,16 +117,7 @@ class SyntheticASLReader:
         self.camera = CameraInfo("radtan", (fx, fy, cx, cy), dist, (width, height), T_BS)
 
         frame_times = np.arange(t0 + 1.0 / frame_freq, end_time, 1.0 / frame_freq)
-        self.frames = []
-        for t in frame_times:
-            pose = sim.interpolate_pose(torch.tensor(t, dtype=f64))
-            cam_inv = se3_inv(se3_mul(pose, sim.camera_offset))
-            pts = mv(cam_inv.R, sim.world) + cam_inv.x
-            px = cam.project(pts).numpy()
-            z = pts[:, 2].numpy()
-            vis = (z > 0.1) & (px[:, 0] > 0) & (px[:, 0] < width) & (px[:, 1] > 0) & (px[:, 1] < height)
-            img = _render(px, vis, width, height, rng, amp, blob_w)
-            self.frames.append((img * 255).astype(np.uint8))
+        self.frames = _render_frames(sim, cam, frame_times, width, height, rng, amp, blob_w)
         self.images = ImageSeq(_ns_stamps(frame_times),
                                [f"{int(t * 1e9)}.png" for t in frame_times])
 
@@ -105,6 +131,72 @@ class SyntheticASLReader:
 
     def load_image_u8(self, index: int) -> np.ndarray:
         return self.frames[index]
+
+
+class SyntheticUZHFPVReader:
+    """The synthetic scene of ``generate_uzhfpv_dataset`` (equidistant
+    fisheye, optional IMU noise), served from memory."""
+
+    def __init__(self, end_time: float = 4.0, imu_freq: float = 200.0, frame_freq: float = 10.0,
+                 width: int = 320, height: int = 240, num_points: int = 300, seed: int = 0,
+                 kind: str = "wave", intrinsics: tuple | None = None,
+                 distortion: tuple = (0.01, -0.005, 0.001, 0.0), imu_noise: dict | None = None,
+                 num_walls: int = 4, wall_distance: float = 2.0):
+        f64 = torch.float64
+        sim = Simulator.create(kind=kind, end_time=end_time + 1.0, num_points=num_points,
+                               num_walls=num_walls, wall_distance=wall_distance, seed=seed)
+        if intrinsics is None:
+            fx = fy = 140.0
+            cx, cy = width / 2, height / 2
+        else:
+            fx, fy, cx, cy = intrinsics
+        dist = tuple(distortion)
+        cam = EquidistantCamera.create(fx, fy, cx, cy, dist, width, height, dtype=f64, device="cpu")
+        rng = np.random.default_rng(seed)
+        amp, blob_w = _point_appearance(num_points, seed)
+        t0 = 0.2
+
+        imu_times = np.arange(t0, end_time, 1.0 / imu_freq)
+        gyr, acc = _noisy_imu(sim, imu_times, imu_freq, imu_noise, rng)
+        self.imu = IMUSeq(_csv9(imu_times), _csv9(gyr), _csv9(acc))
+
+        # the camchain holds T_cam_imu, the inverse offset; the reader inverts it back
+        T_BS = np.eye(4)
+        T_BS[:3, :3] = sim.camera_offset.R.numpy()
+        T_BS[:3, 3] = sim.camera_offset.x.numpy()
+        self.camera = CameraInfo("equidistant", (fx, fy, cx, cy), dist, (width, height),
+                                 np.linalg.inv(np.linalg.inv(T_BS)))
+
+        frame_times = np.arange(t0 + 1.0 / frame_freq, end_time, 1.0 / frame_freq)
+        self.frames = _render_frames(sim, cam, frame_times, width, height, rng, amp, blob_w)
+        self.images = ImageSeq(_csv9(frame_times), [f"img/image_{i}.png" for i in range(len(frame_times))])
+
+        pose, _ = sim.true_pose_velocity(torch.as_tensor(frame_times, dtype=f64))
+        self.groundtruth = GroundTruth(_csv9(frame_times), _csv9(pose.x.numpy()),
+                                       _csv9(rotation_to_quaternion(pose.R.numpy())), None)
+
+    def load_image_u8(self, index: int) -> np.ndarray:
+        return self.frames[index]
+
+
+# UZH-FPV indoor (Snapdragon + fisheye) style calibration of the racing proxy
+UZHFPV_CAM_INTRINSICS = (278.66, 278.48, 319.75, 241.96)
+UZHFPV_CAM_DISTORTION = (-0.013721808247486035, 0.020727425669427896,
+                         -0.012786476702685545, 0.0025242267320687625)
+# the sensor's true noise densities (MEMS data-sheet magnitudes); the filter
+# keeps the tuned config's velocityNoise
+RACING_IMU_NOISE = {"gyr": 3.0e-04, "acc": 2.0e-03, "gyrBias": 4.0e-05, "accBias": 3.0e-03}
+
+
+def racing_proxy(end_time: float = 60.0, seed: int = 13) -> SyntheticUZHFPVReader:
+    """The racing proxy of ``generate_racing_proxy``: a drone-racing
+    figure-eight (``racing`` trajectory) seen at 640x480 and 30 Hz through
+    an equidistant fisheye, a 500 Hz IMU with noise and bias walks, 1600
+    points on 6 walls 4 m out."""
+    return SyntheticUZHFPVReader(end_time=end_time, imu_freq=500.0, frame_freq=30.0, width=640, height=480,
+                                 num_points=1600, seed=seed, kind="racing", intrinsics=UZHFPV_CAM_INTRINSICS,
+                                 distortion=UZHFPV_CAM_DISTORTION, imu_noise=RACING_IMU_NOISE, num_walls=6,
+                                 wall_distance=4.0)
 
 
 def bench_scene(end_time: float = 8.0) -> SyntheticASLReader:
@@ -132,4 +224,4 @@ def shifted_texture_pair(height: int, width: int, shift: tuple[int, int], seed: 
     return img, torch.roll(img, shifts=(shift[1], shift[0]), dims=(0, 1)).contiguous()
 
 
-__all__ = ["SyntheticASLReader", "bench_scene", "shifted_texture_pair"]
+__all__ = ["SyntheticASLReader", "SyntheticUZHFPVReader", "bench_scene", "racing_proxy", "shifted_texture_pair"]

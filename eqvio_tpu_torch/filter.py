@@ -1,17 +1,16 @@
-"""The EqF filter core (counterpart of the main-path subset of
-``eqvio_tpu/filter.py``): settings, fast-Riccati propagation with the fused
-discrete-velocity observer, the square-root Kailath vision update with the
-landmark-lifecycle surgery folded in, and health checks.
+"""The EqF filter core (counterpart of ``eqvio_tpu/filter.py``): settings,
+propagation (fast Euler, accurate matrix-exponential and discrete Riccati
+steps; fused discrete or per-sample continuous velocity lifts), the vision
+update with the landmark-lifecycle surgery folded in, and health checks.
 
-The main path runs in square-root covariance mode: ``EqFState.Sigma`` holds
-a lower factor L with Sigma = L L^T, maintained by QR re-triangularisation,
-and ``propagate_window(wide_factor=True)`` hands the un-triangularised
-Riccati stack to the update's pre-array so a frame costs ONE QR.
-
-Not ported yet (``ROADMAP.md`` queue 1, "other filter modes"): the accurate
-(matrix-exponential) and discrete Riccati steps, dense covariance, and the
-continuous velocity lift.  Settings that select them raise
-``NotImplementedError``.
+Covariance is dense or square-root (``Settings.sqrt_covariance``).  In
+square-root mode ``EqFState.Sigma`` holds a lower factor L with
+Sigma = L L^T, maintained by QR re-triangularisation, and with fast Riccati
+``propagate_window(wide_factor=True)`` hands the un-triangularised Riccati
+stack to the update's pre-array so a frame costs ONE QR.  Every step reads
+no host value, so a CUDA graph captures it: the matrix exponential picks its
+Pade degree and squaring count on the device (:func:`expm`) and the dense
+update factors with ``cholesky_ex``.
 
 Slot protocol: tracker and filter share slot indices; a slot reused under a
 different id is lost + new.
@@ -26,20 +25,21 @@ import torch
 
 from .group import (
     VIOGroup,
+    algebra_scale,
     group_element_between,
     group_exp,
     group_has_nan,
     group_identity,
     group_mul,
     group_normalize,
+    lift_velocity,
+    lift_velocity_discrete,
     state_action,
 )
 from .lie import SE3, so3_from_vectors
-from .matrices import CoordinateSuite, get_suite
+from .matrices import CoordinateSuite, get_suite, state_matrix_A_discrete
 from .runtime import const
 from .states import DUMMY_POINT, IMU, SENSOR_DIM, VIOState, integrate_system, measure_system, state_identity
-
-_NOT_PORTED = "is not ported yet (ROADMAP.md queue 1, 'other filter modes')"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -154,13 +154,8 @@ class Settings:
 class EqFState(NamedTuple):
     xi0: VIOState  # fixed origin configuration
     X: VIOGroup  # observer group element
-    Sigma: torch.Tensor  # lower factor [D, D] (or the wide stack [D, W] mid-frame)
+    Sigma: torch.Tensor  # [D, D] covariance, or its lower factor (the wide stack [D, W] mid-frame)
     t: torch.Tensor  # filter time, 0-dim
-
-
-def _require_sqrt(settings: Settings, what: str) -> None:
-    if not settings.sqrt_covariance:
-        raise NotImplementedError(f"dense covariance ({what}) {_NOT_PORTED}")
 
 
 def _mask_vec(xi0: VIOState) -> torch.Tensor:
@@ -187,20 +182,35 @@ def _sqrt_mask_reset(L: torch.Tensor, keep_vec: torch.Tensor, add_diag: torch.Te
     return tria(torch.cat([L * keep_vec[:, None], torch.diag(torch.sqrt(add_diag))], dim=1))
 
 
+def _mask_outer(xi0: VIOState) -> torch.Tensor:
+    mv_ = _mask_vec(xi0)
+    return mv_[:, None] * mv_[None, :]
+
+
+def _dense_mask_reset(Sigma: torch.Tensor, keep_vec: torch.Tensor, add_diag: torch.Tensor) -> torch.Tensor:
+    """``diag(keep) Sigma diag(keep) + diag(add_diag)``."""
+    return Sigma * keep_vec[:, None] * keep_vec[None, :] + torch.diag(add_diag)
+
+
+def _mask_reset(Sigma, keep_vec, add_diag, settings: Settings) -> torch.Tensor:
+    """The covariance surgery in the state's form (factor or dense)."""
+    if settings.sqrt_covariance:
+        return _sqrt_mask_reset(Sigma, keep_vec, add_diag)
+    return _dense_mask_reset(Sigma, keep_vec, add_diag)
+
+
 def sanitize_sigma(Sigma: torch.Tensor, xi0: VIOState, settings: Settings) -> torch.Tensor:
     """Zero inactive rows/cols and reset their diagonal to the initial point variance."""
-    _require_sqrt(settings, "sanitize_sigma")
     mv_ = _mask_vec(xi0)
-    return _sqrt_mask_reset(Sigma, mv_, (1.0 - mv_) * settings.initial_point_var)
+    return _mask_reset(Sigma, mv_, (1.0 - mv_) * settings.initial_point_var, settings)
 
 
-def dense_sigma(state: EqFState) -> torch.Tensor:
-    """The covariance ``L L^T`` from the square-root state."""
-    return state.Sigma @ state.Sigma.T
+def dense_sigma(state: EqFState, settings: Settings) -> torch.Tensor:
+    """The covariance as a dense matrix in either mode."""
+    return state.Sigma @ state.Sigma.T if settings.sqrt_covariance else state.Sigma
 
 
 def init_state(settings: Settings, capacity: int, dtype: torch.dtype, device) -> EqFState:
-    _require_sqrt(settings, "init_state")
     xi0 = state_identity(capacity, dtype, device)
     xi0 = xi0._replace(
         sensor=xi0.sensor._replace(camera_offset=settings.camera_offset_se3(dtype, device))
@@ -214,7 +224,7 @@ def init_state(settings: Settings, capacity: int, dtype: torch.dtype, device) ->
     return EqFState(
         xi0=xi0,
         X=group_identity(capacity, dtype, device),
-        Sigma=torch.diag(torch.sqrt(diag)),
+        Sigma=torch.diag(torch.sqrt(diag) if settings.sqrt_covariance else diag),
         t=torch.tensor(-1.0, dtype=dtype, device=device),
     )
 
@@ -241,8 +251,9 @@ def state_estimate(state: EqFState) -> VIOState:
 # ---------------------------------------------------------------------------
 
 
-def _sqrt_riccati_stack(state: EqFState, A_exp, Bt, dt, settings: Settings) -> torch.Tensor:
-    """Wide factor S with ``S S^T = mask (A Sigma A^T + dt (B q B^T + P)) mask + pad``.
+def _sqrt_riccati_stack(state: EqFState, A_exp, noise_cols, dt, settings: Settings) -> torch.Tensor:
+    """Wide factor S with ``S S^T = mask (A Sigma A^T + N N^T + dt P) mask + pad``
+    for the input-noise columns ``N = noise_cols``.
 
     Width ``Wc + 12 + D``; the process-noise and pad diagonals share one
     block because their masks are disjoint.
@@ -250,39 +261,187 @@ def _sqrt_riccati_stack(state: EqFState, A_exp, Bt, dt, settings: Settings) -> t
     dtype, device = state.Sigma.dtype, state.Sigma.device
     dt_pos = torch.clamp(torch.as_tensor(dt, dtype=dtype, device=device), min=0.0)
     mv_ = _mask_vec(state.xi0)
-    q_sqrt = torch.sqrt(settings.input_gain_diag(dtype, device))
     p_diag = settings.state_gain_diag(state.xi0.capacity, dtype, device) * mv_
     pad = (1.0 - mv_) * settings.initial_point_var
     return torch.cat(
         [
             (A_exp @ state.Sigma) * mv_[:, None],
-            torch.sqrt(dt_pos) * (Bt * q_sqrt[None, :]) * mv_[:, None],
+            noise_cols * mv_[:, None],
             torch.diag(torch.sqrt(dt_pos * p_diag + pad)),
         ],
         dim=1,
     )
 
 
+def _euler_noise_cols(Bt, dt, settings: Settings) -> torch.Tensor:
+    """``sqrt(dt) B q^1/2``: the input-noise columns of an Euler step."""
+    dt_pos = torch.clamp(torch.as_tensor(dt, dtype=Bt.dtype, device=Bt.device), min=0.0)
+    return torch.sqrt(dt_pos) * (Bt * torch.sqrt(settings.input_gain_diag(Bt.dtype, Bt.device))[None, :])
+
+
+def _dense_riccati(state: EqFState, A_exp, Bt, dt, settings: Settings) -> torch.Tensor:
+    """``A Sigma A^T + dt (B q B^T + P)``, symmetrised and sanitized."""
+    dtype, device = state.Sigma.dtype, state.Sigma.device
+    Q_in = (Bt * settings.input_gain_diag(dtype, device)[None, :]) @ Bt.T
+    P = torch.diag(settings.state_gain_diag(state.xi0.capacity, dtype, device)) * _mask_outer(state.xi0)
+    Sigma = A_exp @ state.Sigma @ A_exp.T + dt * (Q_in + P)
+    return sanitize_sigma(0.5 * (Sigma + Sigma.T), state.xi0, settings)
+
+
+def _sqrt_step(state: EqFState, A_exp, noise_cols, dt, settings: Settings) -> EqFState:
+    """One QR of the stack; zero-dt steps are exact no-ops and keep the factor."""
+    dt_t = torch.as_tensor(dt, dtype=state.Sigma.dtype, device=state.Sigma.device)
+    stack = _sqrt_riccati_stack(state, A_exp, noise_cols, dt, settings)
+    return state._replace(Sigma=torch.where(dt_t > 0, tria(stack), state.Sigma))
+
+
 def integrate_riccati_fast(
     state: EqFState, imu: IMU, dt, settings: Settings, suite: CoordinateSuite, wide: bool = False
 ) -> EqFState:
-    """Euler Riccati step in square-root form.
+    """Euler Riccati step.
 
-    ``wide=True`` stores the un-triangularised stack in ``Sigma`` (exact:
-    only the factor's Gram matters); the frame's update QR squares it again.
+    ``wide=True`` (square-root mode) stores the un-triangularised stack in
+    ``Sigma`` (exact: only the factor's Gram matters); the frame's update QR
+    squares it again.
     """
-    _require_sqrt(settings, "integrate_riccati_fast")
     D = state.xi0.dim()
     dtype, device = state.Sigma.dtype, state.Sigma.device
     A0t = suite.state_matrix_A(state.X, state.xi0, imu)
     Bt = suite.input_matrix_B(state.X, state.xi0)
     A_exp = torch.eye(D, dtype=dtype, device=device) + dt * A0t
-    S = _sqrt_riccati_stack(state, A_exp, Bt, dt, settings)
+    if not settings.sqrt_covariance:
+        return state._replace(Sigma=_dense_riccati(state, A_exp, Bt, dt, settings))
+    noise_cols = _euler_noise_cols(Bt, dt, settings)
     if wide:
-        return state._replace(Sigma=S)
-    # zero-dt steps are exact no-ops: keep the incoming factor
-    dt_t = torch.as_tensor(dt, dtype=dtype, device=device)
-    return state._replace(Sigma=torch.where(dt_t > 0, tria(S), state.Sigma))
+        return state._replace(Sigma=_sqrt_riccati_stack(state, A_exp, noise_cols, dt, settings))
+    return _sqrt_step(state, A_exp, noise_cols, dt, settings)
+
+
+# jax.scipy.linalg.expm's Pade coefficients and degree thresholds
+_PADE_B = {
+    3: (120., 60., 12., 1.),
+    5: (30240., 15120., 3360., 420., 30., 1.),
+    7: (17297280., 8648640., 1995840., 277200., 25200., 1512., 56., 1.),
+    9: (17643225600., 8821612800., 2075673600., 302702400., 30270240., 2162160., 110880., 3960., 90., 1.),
+    13: (64764752532480000., 32382376266240000., 7771770303897600., 1187353796428800., 129060195264000.,
+         10559470521600., 670442572800., 33522128640., 1323241920., 40840800., 960960., 16380., 182., 1.),
+}
+_EXPM = {  # dtype -> (max norm before squaring, degrees, norm thresholds between degrees)
+    torch.float64: (5.371920351148152, (3, 5, 7, 9, 13),
+                    (1.495585217958292e-002, 2.539398330063230e-001, 9.504178996162932e-001,
+                     2.097847961257068e+000)),
+    torch.float32: (3.925724783138660, (3, 5, 7), (4.258730016922831e-001, 1.880152677804762e+000)),
+}
+EXPM_MAX_SQUARINGS = 16
+
+
+def _pade(m: int, A, powers, ident):
+    """``(U, V)`` of the degree-``m`` Pade approximant, from the shared powers
+    ``A^2, A^4, A^6, A^8``, in ``jax.scipy.linalg.expm``'s operation order."""
+    b = _PADE_B[m]
+    A2, A4, A6, A8 = powers
+    if m == 13:
+        U = A @ (A6 @ (b[13] * A6 + b[11] * A4 + b[9] * A2) + b[7] * A6 + b[5] * A4 + b[3] * A2 + b[1] * ident)
+        V = A6 @ (b[12] * A6 + b[10] * A4 + b[8] * A2) + b[6] * A6 + b[4] * A4 + b[2] * A2 + b[0] * ident
+        return U, V
+    evens = [ident, A2, A4, A6, A8][: (m + 1) // 2]
+    u_sum = b[m] * evens[-1]
+    v_sum = b[m - 1] * evens[-1]
+    for k in range(len(evens) - 2, 0, -1):
+        u_sum = u_sum + b[2 * k + 1] * evens[k]
+        v_sum = v_sum + b[2 * k] * evens[k]
+    return A @ (u_sum + b[1] * ident), v_sum + b[0] * ident
+
+
+def expm(A: torch.Tensor) -> torch.Tensor:
+    """Matrix exponential of ``A [n, n]`` by scaling and squaring, as
+    ``jax.scipy.linalg.expm`` computes it, with every choice made on the
+    device: all Pade degrees are formed and one is selected by the L1 norm,
+    then 16 squarings run masked by the squaring count (NaN beyond 16).  No
+    host read, so a CUDA graph captures it."""
+    maxnorm, degrees, conds = _EXPM[A.dtype]
+    norm = torch.linalg.matrix_norm(A, ord=1)
+    n_sq = torch.clamp(torch.floor(torch.log2(norm / maxnorm)), min=0.0)
+    A = A / torch.pow(2.0, n_sq)
+    idx = torch.sum(norm >= const(conds, A.dtype, A.device))
+    ident = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    A2 = A @ A
+    A4 = A2 @ A2
+    A6 = A4 @ A2 if degrees[-1] > 5 else None
+    A8 = A6 @ A2 if 9 in degrees else None
+    P = Q = None
+    for k, m in enumerate(degrees):
+        U, V = _pade(m, A, (A2, A4, A6, A8), ident)
+        take = idx == k
+        P = U + V if P is None else torch.where(take, U + V, P)
+        Q = V - U if Q is None else torch.where(take, V - U, Q)
+    R = torch.linalg.solve_ex(Q, P)[0]
+    for i in range(EXPM_MAX_SQUARINGS):
+        R = torch.where(n_sq > i, R @ R, R)
+    return torch.where(n_sq > EXPM_MAX_SQUARINGS, torch.full_like(R, float("nan")), R)
+
+
+def integrate_riccati_accurate(
+    state: EqFState, imu: IMU, dt, settings: Settings, suite: CoordinateSuite
+) -> EqFState:
+    """Matrix-exponential Riccati step: expm of the stacked ``[[A, B], [0, 0]]``
+    system; zero-dt steps compute with dt = 1 and keep the incoming Sigma."""
+    D = state.xi0.dim()
+    dtype, device = state.Sigma.dtype, state.Sigma.device
+    dt = torch.as_tensor(dt, dtype=dtype, device=device)
+    dt_safe = torch.where(dt > 0, dt, torch.ones_like(dt))
+    AB = torch.zeros(D + 12, D + 12, dtype=dtype, device=device)
+    AB[:D, :D] = suite.state_matrix_A(state.X, state.xi0, imu)
+    AB[:D, D:] = suite.input_matrix_B(state.X, state.xi0)
+    ABexp = expm(dt_safe * AB)
+    A_exp, B_exp = ABexp[:D, :D], ABexp[:D, D:]
+    if settings.sqrt_covariance:
+        # Q_in = B_exp diag(q / dt) B_exp^T and P at dt; the one QR also sanitizes
+        noise_cols = B_exp * torch.sqrt(settings.input_gain_diag(dtype, device) / dt_safe)[None, :]
+        stack = _sqrt_riccati_stack(state, A_exp, noise_cols, dt_safe, settings)
+        return state._replace(Sigma=torch.where(dt > 0, tria(stack), state.Sigma))
+    Q_in = (B_exp * (settings.input_gain_diag(dtype, device) / dt_safe)[None, :]) @ B_exp.T
+    P = torch.diag(settings.state_gain_diag(state.xi0.capacity, dtype, device)) * _mask_outer(state.xi0)
+    Sigma = A_exp @ state.Sigma @ A_exp.T + Q_in + dt_safe * P
+    Sigma = torch.where(dt > 0, 0.5 * (Sigma + Sigma.T), state.Sigma)
+    return state._replace(Sigma=sanitize_sigma(Sigma, state.xi0, settings))
+
+
+def integrate_riccati_discrete(
+    state: EqFState, imu: IMU, dt, settings: Settings, suite: CoordinateSuite
+) -> EqFState:
+    """Riccati step with the discrete transition of the lift
+    (:func:`matrices.state_matrix_A_discrete`)."""
+    A_d = state_matrix_A_discrete(suite, state.X, state.xi0, imu, dt)
+    Bt = suite.input_matrix_B(state.X, state.xi0)
+    if settings.sqrt_covariance:
+        return _sqrt_step(state, A_d, _euler_noise_cols(Bt, dt, settings), dt, settings)
+    return state._replace(Sigma=_dense_riccati(state, A_d, Bt, dt, settings))
+
+
+def integrate_observer(state: EqFState, imu: IMU, dt, settings: Settings) -> EqFState:
+    """Move the observer by one IMU sample: the discrete lift, or the
+    exponential of the continuous lift times ``dt``."""
+    xi_hat = state_estimate(state)
+    if settings.use_discrete_velocity_lift:
+        lifted = lift_velocity_discrete(xi_hat, imu, dt)
+    else:
+        lifted = group_exp(algebra_scale(lift_velocity(xi_hat, imu), dt))
+    return state._replace(X=group_normalize(group_mul(state.X, lifted)))
+
+
+def propagate(state: EqFState, imu: IMU, dt, settings: Settings, suite: CoordinateSuite | None = None) -> EqFState:
+    """One IMU sample: the configured Riccati step, then the observer."""
+    if suite is None:
+        suite = settings.suite
+    if settings.use_discrete_state_matrix:
+        state = integrate_riccati_discrete(state, imu, dt, settings, suite)
+    elif settings.use_accurate_riccati:
+        state = integrate_riccati_accurate(state, imu, dt, settings, suite)
+    else:
+        state = integrate_riccati_fast(state, imu, dt, settings, suite)
+    state = integrate_observer(state, imu, dt, settings)
+    return state._replace(t=torch.maximum(state.t, imu.stamp.to(state.t.dtype)))
 
 
 def _imu_at(imu: IMU, k: int) -> IMU:
@@ -306,21 +465,25 @@ def propagate_window(
     suite: CoordinateSuite | None = None,
     wide_factor: bool = False,
 ) -> EqFState:
-    """Propagate over a padded IMU window ``[K]`` with per-sample dt.
+    """Propagate over a padded IMU window ``[K]`` with per-sample dt; the
+    loops over the window are Python loops in place of ``lax.scan``, so a
+    captured step holds K copies of their bodies.  Zero-dt pad entries are
+    exact no-ops.
 
-    Fast Riccati: one Riccati step on the time-weighted mean IMU, then the
-    fused observer: integrate the estimate over the window (a Python loop in
-    place of ``lax.scan``) and apply ONE exact group element.  Zero-dt pad
-    entries are exact no-ops.  ``wide_factor=True`` leaves ``Sigma`` as the
-    wide Riccati stack for the following :func:`process_vision`.
+    Fast Riccati: one Riccati step on the time-weighted mean IMU, then with
+    the discrete velocity lift the fused observer (integrate the estimate
+    over the window and apply ONE exact group element), else the per-sample
+    continuous lift.  Otherwise :func:`propagate` per sample.
+    ``wide_factor=True`` (fast Riccati in square-root mode; a no-op
+    otherwise) leaves ``Sigma`` as the wide Riccati stack for the following
+    :func:`process_vision`.
     """
     if suite is None:
         suite = settings.suite
-    if not settings.fast_riccati or settings.use_discrete_state_matrix:
-        raise NotImplementedError(f"per-sample (accurate/discrete) Riccati {_NOT_PORTED}")
-    if not settings.use_discrete_velocity_lift:
-        raise NotImplementedError(f"the continuous velocity lift {_NOT_PORTED}")
-    wide = wide_factor and settings.sqrt_covariance
+    if not settings.fast_riccati:
+        for k in range(dts.shape[0]):
+            state = propagate(state, _imu_at(imu_window, k), dts[k], settings, suite)
+        return state._replace(t=torch.maximum(state.t, torch.max(imu_window.stamp).to(state.t.dtype)))
 
     total = torch.clamp(torch.sum(dts), min=1e-9)
     weight = (dts / total)[:, None]
@@ -331,14 +494,19 @@ def propagate_window(
         gyr_bias_vel=torch.sum(imu_window.gyr_bias_vel * weight, dim=0),
         acc_bias_vel=torch.sum(imu_window.acc_bias_vel * weight, dim=0),
     )
+    wide = wide_factor and settings.sqrt_covariance
     state = integrate_riccati_fast(state, mean_imu, total, settings, suite, wide=wide)
 
-    xi_hat0 = state_estimate(state)
-    xi = xi_hat0
-    for k in range(dts.shape[0]):
-        xi = integrate_system(xi, _imu_at(imu_window, k), dts[k])
-    L = group_element_between(xi_hat0, xi)
-    state = state._replace(X=group_normalize(group_mul(state.X, L)))
+    if settings.use_discrete_velocity_lift:
+        xi_hat0 = state_estimate(state)
+        xi = xi_hat0
+        for k in range(dts.shape[0]):
+            xi = integrate_system(xi, _imu_at(imu_window, k), dts[k])
+        L = group_element_between(xi_hat0, xi)
+        state = state._replace(X=group_normalize(group_mul(state.X, L)))
+    else:
+        for k in range(dts.shape[0]):
+            state = integrate_observer(state, _imu_at(imu_window, k), dts[k], settings)
     return state._replace(t=torch.maximum(state.t, torch.max(imu_window.stamp).to(state.t.dtype)))
 
 
@@ -356,21 +524,24 @@ def update_vision(
     suite: CoordinateSuite | None = None,
     surgery: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> EqFState:
-    """Masked square-root EqF update: one QR of the Kailath pre-array
-    ``[[R^1/2, C W], [0, W]]``.
+    """Masked EqF update with the block-structured output matrix ``C`` (one
+    2x3 block per landmark).
 
+    Square-root mode: one QR of the Kailath pre-array ``[[R^1/2, C W], [0, W]]``.
     ``surgery=(keep_vec, add_diag)`` runs the update against
     ``diag(keep) Sigma diag(keep) + diag(add)`` by widening ``W`` to
     ``[keep o L, diag(sqrt(add))]``; the post-array factor is then already
-    the clean factor of the sanitized posterior.
+    the clean factor of the sanitized posterior.  Dense mode: the surgery is
+    applied to Sigma, the innovation covariance is factored with
+    ``cholesky_ex`` (no host check of its ``info``) and the gain is two
+    triangular solves; the posterior is sanitized.
     """
-    _require_sqrt(settings, "update_vision")
     if suite is None:
         suite = settings.suite
-    xi0, X, L = state.xi0, state.X, state.Sigma
+    xi0, X, Sigma = state.xi0, state.X, state.Sigma
     N = xi0.capacity
     D = xi0.dim()
-    dtype, device = L.dtype, L.device
+    dtype, device = Sigma.dtype, Sigma.device
 
     active = (xi0.mask & vis_mask).to(dtype)
     y_hat, _ = measure_system(state_action(X, xi0), camera)
@@ -389,33 +560,46 @@ def update_vision(
     )
 
     m = 2 * N
-    if surgery is not None:
-        keep_vec, add_diag = surgery
-        W = torch.cat([L * keep_vec[:, None], torch.diag(torch.sqrt(add_diag))], dim=1)
+    if settings.sqrt_covariance:
+        if surgery is not None:
+            keep_vec, add_diag = surgery
+            W = torch.cat([Sigma * keep_vec[:, None], torch.diag(torch.sqrt(add_diag))], dim=1)
+        else:
+            W = Sigma
+        Wc = W.shape[1]
+        CW = torch.einsum("iax,ixd->iad", C, W[SENSOR_DIM:].reshape(N, 3, Wc)).reshape(m, Wc)
+        pre = torch.zeros(m + D, m + Wc, dtype=dtype, device=device)
+        pre[:m, :m] = torch.diag(torch.sqrt(r_diag))
+        pre[:m, m:] = CW
+        pre[m:, m:] = W
+        post = tria(pre)
+        S_half = post[:m, :m]
+        Kbar = post[m:, :m]
+        Sigma_new = post[m:, m:]
+        Gamma = Kbar @ torch.linalg.solve_triangular(S_half, resid.reshape(-1, 1), upper=False).squeeze(-1)
     else:
-        W = L
-    Wc = W.shape[1]
-    CW = torch.einsum("iax,ixd->iad", C, W[SENSOR_DIM:].reshape(N, 3, Wc)).reshape(m, Wc)
-    pre = torch.zeros(m + D, m + Wc, dtype=dtype, device=device)
-    pre[:m, :m] = torch.diag(torch.sqrt(r_diag))
-    pre[:m, m:] = CW
-    pre[m:, m:] = W
-    post = tria(pre)
-    S_half = post[:m, :m]
-    Kbar = post[m:, :m]
-    L_new = post[m:, m:]
-    Gamma = Kbar @ torch.linalg.solve_triangular(
-        S_half, resid.reshape(-1, 1), upper=False
-    ).squeeze(-1)
+        if surgery is not None:
+            Sigma = _dense_mask_reset(Sigma, *surgery)
+        Sig_lm = Sigma[SENSOR_DIM:, SENSOR_DIM:].reshape(N, 3, N, 3)
+        S = torch.einsum("iax,ixjy,jby->iajb", C, Sig_lm, C).reshape(m, m) + torch.diag(r_diag)
+        SigCt = torch.einsum("djy,jby->djb", Sigma[:, SENSOR_DIM:].reshape(D, N, 3), C).reshape(D, m)
+        chol = torch.linalg.cholesky_ex(S)[0]
+        # K = SigCt S^-1 from S K^T = SigCt^T, through the two triangular factors
+        Kt = torch.linalg.solve_triangular(
+            chol.T, torch.linalg.solve_triangular(chol, SigCt.T, upper=False), upper=True)
+        K = Kt.T
+        Gamma = K @ resid.reshape(-1)
+        Sigma_new = Sigma - K @ SigCt.T
+        Sigma_new = 0.5 * (Sigma_new + Sigma_new.T)
 
     if settings.use_discrete_innovation_lift:
         Delta = suite.lift_innovation_discrete(Gamma, xi0)
     else:
         Delta = group_exp(suite.lift_innovation(Gamma, xi0))
     X_new = group_normalize(group_mul(Delta, X))
-    if surgery is None:
-        L_new = sanitize_sigma(L_new, xi0, settings)
-    return state._replace(X=X_new, Sigma=L_new)
+    if not (settings.sqrt_covariance and surgery is not None):
+        Sigma_new = sanitize_sigma(Sigma_new, xi0, settings)
+    return state._replace(X=X_new, Sigma=Sigma_new)
 
 
 # ---------------------------------------------------------------------------
@@ -489,8 +673,7 @@ def add_landmarks(
     pdiag = torch.cat(
         [zeros, settings.initial_point_cov_diag(dtype, device).repeat(state.xi0.capacity)]
     )
-    _require_sqrt(settings, "add_landmarks")
-    Sigma = _sqrt_mask_reset(state.Sigma, 1.0 - full_new, full_new * pdiag)
+    Sigma = _mask_reset(state.Sigma, 1.0 - full_new, full_new * pdiag, settings)
     return state._replace(xi0=xi0, X=state.X._replace(Q=Q), Sigma=Sigma)
 
 
@@ -504,12 +687,11 @@ def outlier_mask(
 ) -> torch.Tensor:
     """Two-stage ranked outlier rejection: absolute-pixel outliers rank above
     Mahalanobis outliers; at most ``(1 - retention) * M`` are discarded."""
-    _require_sqrt(settings, "outlier_mask")
     if suite is None:
         suite = settings.suite
-    xi0, X, L = state.xi0, state.X, state.Sigma
+    xi0, X, Sigma = state.xi0, state.X, state.Sigma
     N = xi0.capacity
-    dtype = L.dtype
+    dtype = Sigma.dtype
     tracked = xi0.mask & vis_mask
 
     y_hat, _ = measure_system(state_estimate(state), camera)
@@ -518,10 +700,14 @@ def outlier_mask(
     abs_out = tracked & (err_abs > settings.outlier_threshold_abs)
 
     C0 = suite.output_Ci(xi0.landmarks, X.Q, camera)
-    L_lm = L[SENSOR_DIM:].reshape(N, 3, -1)
-    lm_diag = torch.einsum("nxd,nyd->nxy", L_lm, L_lm)
+    if settings.sqrt_covariance:  # the marginal 3x3 blocks from the factor's landmark rows
+        L_lm = Sigma[SENSOR_DIM:].reshape(N, 3, -1)
+        lm_diag = torch.einsum("nxd,nyd->nxy", L_lm, L_lm)
+    else:
+        idx = torch.arange(N, device=Sigma.device)
+        lm_diag = Sigma[SENSOR_DIM:, SENSOR_DIM:].reshape(N, 3, N, 3)[idx, :, idx, :]
     out_cov = C0 @ lm_diag @ C0.transpose(-1, -2)
-    out_cov = out_cov + torch.eye(2, dtype=dtype, device=L.device) * 1e-12
+    out_cov = out_cov + torch.eye(2, dtype=dtype, device=Sigma.device) * 1e-12
     a, b = out_cov[:, 0, 0], out_cov[:, 0, 1]
     c, d = out_cov[:, 1, 0], out_cov[:, 1, 1]
     det = a * d - b * c
@@ -607,7 +793,7 @@ def process_vision(
     )
     add_diag = torch.cat([torch.zeros_like(ones), add_lm.reshape(-1)])
     if not do_update:
-        return state._replace(Sigma=_sqrt_mask_reset(state.Sigma, keep_vec, add_diag))
+        return state._replace(Sigma=_mask_reset(state.Sigma, keep_vec, add_diag, settings))
     vis_upd = (vis_tracked & kept) | new
     return update_vision(
         state, pixels, vis_upd, camera, settings, suite, surgery=(keep_vec, add_diag)
@@ -615,16 +801,19 @@ def process_vision(
 
 
 def health_check(state: EqFState, settings: Settings) -> dict:
-    """Failure flags: ``nan``, ``sigma_pd`` (factor diagonal > 0) and
+    """Failure flags: ``nan``, ``sigma_pd`` (the factor's diagonal > 0, or a
+    Cholesky factorisation of the dense Sigma that succeeds) and
     ``scales_valid`` (active landmark scales inside [1e-8, 1e8])."""
-    _require_sqrt(settings, "health_check")
     nan = (
         group_has_nan(state.X)
         | torch.isnan(state.Sigma).any()
         | torch.isnan(state.xi0.landmarks).any()
         | torch.isnan(state.xi0.sensor.pose.R).any()
     )
-    sigma_pd = torch.all(torch.diagonal(state.Sigma) > 0)
+    if settings.sqrt_covariance:
+        sigma_pd = torch.all(torch.diagonal(state.Sigma) > 0)
+    else:
+        sigma_pd = torch.linalg.cholesky_ex(state.Sigma)[1] == 0
     a = state.X.Q.a
     scales_valid = torch.all(torch.where(state.xi0.mask, (a > 1e-8) & (a < 1e8), True))
     return {"nan": nan, "sigma_pd": sigma_pd, "scales_valid": scales_valid}

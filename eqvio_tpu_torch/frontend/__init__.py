@@ -1,4 +1,4 @@
-from .detector import detect_features, harris_score
+from .detector import detect_features, equalize_histogram, harris_score
 from .klt import track_features
 from .pyramid import build_pyramid
 from .tracker import TrackerConfig, TrackerState, tracker_init, tracker_step
@@ -8,6 +8,7 @@ __all__ = [
     "TrackerState",
     "build_pyramid",
     "detect_features",
+    "equalize_histogram",
     "harris_score",
     "track_features",
     "tracker_init",

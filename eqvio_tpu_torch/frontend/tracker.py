@@ -1,7 +1,8 @@
 """Slot-based point-feature tracker (counterpart of
-``eqvio_tpu/frontend/tracker.py``): KLT tracking, the epipolar RANSAC gate,
-gated Shi-Tomasi re-detection and slot refill under the fixed-capacity slot
-protocol the filter shares.
+``eqvio_tpu/frontend/tracker.py``): optional histogram equalisation, KLT
+tracking, the epipolar RANSAC gate, the median-flow gate, gated Shi-Tomasi
+re-detection and slot refill under the fixed-capacity slot protocol the
+filter shares.
 
 The detector gate (``featureSearchThreshold``) is decided on the device, so
 a step has no host sync and a CUDA graph can capture it: the detector runs
@@ -20,7 +21,7 @@ from typing import NamedTuple
 
 import torch
 
-from .detector import detect_features
+from .detector import detect_features, equalize_histogram
 from .klt import track_features
 from .prng import fold_in, prng_key
 from .pyramid import build_pyramid, pyramid_shapes
@@ -38,7 +39,7 @@ class TrackerConfig:
     max_error: float = 0.05
     feature_search_threshold: float = 1.0
     equalize_histogram: bool = False
-    flow_outlier_threshold: float = 0.0
+    flow_outlier_threshold: float = 0.0  # median-flow gate (px); 0 disables
     ransac_inlier_threshold: float = 0.0  # Sampson px; 0 disables the gate
     ransac_hypotheses: int = 64
     ransac_min_inliers: int = 8
@@ -84,12 +85,9 @@ def tracker_step(
 ) -> TrackerState:
     """Process one float32 frame ``[H, W]`` in [0, 1]: track live slots, drop
     failures, refill free slots with new corners under fresh ids."""
-    if config.equalize_histogram or config.flow_outlier_threshold > 0:
-        raise NotImplementedError(
-            "histogram equalisation and the flow gate are not ported yet "
-            "(ROADMAP.md queue 1, fisheye front end)"
-        )
     device = image.device
+    if config.equalize_histogram:
+        image = equalize_histogram(image)
     pyr = build_pyramid(image, config.max_level + 1)
 
     new_pos, tracked = track_features(
@@ -104,6 +102,8 @@ def tracker_step(
             hypotheses=config.ransac_hypotheses,
             min_inliers=config.ransac_min_inliers,
         )
+    if config.flow_outlier_threshold > 0:
+        tracked = _median_flow_gate(state.positions, new_pos, tracked, config.flow_outlier_threshold)
     positions = torch.where(tracked[:, None], new_pos, state.positions)
     ids = torch.where(tracked, state.ids, torch.full_like(state.ids, -1))
     mask = tracked
@@ -158,3 +158,17 @@ def tracker_step(
         pyramid=tuple(pyr),
         searched=searching,
     )
+
+
+def _median_flow_gate(prev: torch.Tensor, new: torch.Tensor, tracked: torch.Tensor, threshold: float):
+    """Drop tracks whose flow lies ``threshold`` px or more from the tracked
+    tracks' per-axis median flow (upper median; kept whole under 4 tracks).
+    The median is read from the sorted flow at a device index."""
+    flow = new - prev
+    big = torch.full_like(flow[:, 0], 1e9)
+    n_tr = torch.sum(tracked)
+    med_idx = torch.clamp(n_tr // 2, 0, flow.shape[0] - 1).reshape(1)
+    med = torch.cat([torch.sort(torch.where(tracked, flow[:, i], big)).values.index_select(0, med_idx)
+                     for i in range(2)])
+    dev = torch.linalg.norm(flow - med, dim=-1)
+    return tracked & ((dev < threshold) | (n_tr < 4))

@@ -14,7 +14,9 @@ import torch
 from .lie import (
     SE3,
     SOT3,
+    cross,
     mv,
+    se3_Adjoint,
     se3_apply,
     se3_exp,
     se3_identity,
@@ -78,6 +80,10 @@ def group_inv(x: VIOGroup) -> VIOGroup:
     )
 
 
+def algebra_scale(lam: VIOAlgebra, c) -> VIOAlgebra:
+    return VIOAlgebra(lam.u_beta * c, lam.U_A * c, lam.u_w * c, lam.U_B * c, lam.W * c)
+
+
 def group_exp(lam: VIOAlgebra) -> VIOGroup:
     """(A, w) through the SE_2(3) exponential."""
     ext = se23_exp(torch.cat([lam.U_A[..., 0:3], lam.U_A[..., 3:6], lam.u_w], dim=-1))
@@ -113,6 +119,23 @@ def state_action(x: VIOGroup, state: VIOState) -> VIOState:
 def output_action(x: VIOGroup, pixels: torch.Tensor, camera) -> torch.Tensor:
     bearings = camera.undistort(pixels)
     return camera.project(mv(x.Q.R.transpose(-1, -2), bearings))
+
+
+def lift_velocity(state: VIOState, imu: IMU) -> VIOAlgebra:
+    """Continuous lift ``Lambda(xi, u)``: the algebra element whose flow
+    moves the state as the IMU input does."""
+    sensor = state.sensor
+    gyr_est, acc_est = imu_minus_bias(imu, sensor.bias)
+    U_A = torch.cat([gyr_est, sensor.velocity], dim=-1)
+    U_B = mv(se3_Adjoint(se3_inv(sensor.camera_offset)), U_A)
+    u_w = -acc_est + sensor.gravity_dir() * GRAVITY
+    omega_C, v_C = U_B[..., 0:3], U_B[..., 3:6]
+    p = state.landmarks
+    p_sq = torch.clamp(torch.sum(p * p, dim=-1), min=1e-12)
+    w_rot = omega_C[..., None, :] + cross(p, v_C[..., None, :]) / p_sq[..., None]
+    w_scale = torch.sum(p * v_C[..., None, :], dim=-1) / p_sq
+    return VIOAlgebra(torch.cat([imu.gyr_bias_vel, imu.acc_bias_vel], dim=-1), U_A, u_w, U_B,
+                      torch.cat([w_rot, w_scale[..., None]], dim=-1))
 
 
 def lift_velocity_discrete(state: VIOState, imu: IMU, dt) -> VIOGroup:
@@ -176,6 +199,7 @@ def group_has_nan(x: VIOGroup) -> torch.Tensor:
 __all__ = [
     "VIOAlgebra",
     "VIOGroup",
+    "algebra_scale",
     "group_element_between",
     "group_exp",
     "group_has_nan",
@@ -183,6 +207,7 @@ __all__ = [
     "group_inv",
     "group_mul",
     "group_normalize",
+    "lift_velocity",
     "lift_velocity_discrete",
     "output_action",
     "sensor_action",

@@ -1,6 +1,7 @@
 from .config import (
     bench_config,
     load_config,
+    racing_proxy_config,
     safe_get,
     settings_from_config,
     template_config,
@@ -14,6 +15,7 @@ __all__ = [
     "VIOWriter",
     "bench_config",
     "load_config",
+    "racing_proxy_config",
     "rotation_to_quaternion",
     "safe_get",
     "settings_from_config",

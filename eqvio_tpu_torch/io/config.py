@@ -11,6 +11,8 @@ import sys
 from ..filter import Settings
 from ..frontend.tracker import TrackerConfig
 
+KLT_MODES = ("auto", "gather", "mxu", "pallas")  # the JAX package's KLT backends
+
 
 def load_config(path: str) -> dict:
     import yaml
@@ -59,6 +61,49 @@ def template_config() -> dict:
         },
         "main": {"writeState": True},
         "sim": {"maxFeatures": 30, "numPoints": 1000, "wallDistance": 2.0, "numWalls": 4},
+    }
+
+
+def racing_proxy_config() -> dict:
+    """``configs/config_racing_proxy.yaml`` as a dict, for machines without
+    PyYAML (a test keeps the two equal): the UZH-FPV tuned values with the
+    proxy's measured scene depth, equalisation, 40 features, ``kltMode: mxu``
+    and the epipolar gate off."""
+    return {
+        "eqf": {
+            "initialValue": {"sceneDepth": 6.94},
+            "initialVariance": {
+                "pointDepth": -1.0, "attitude": 0.10282752317467045, "biasAcc": 1.2232071190499316,
+                "biasGyr": 1.1673134780260075, "cameraAttitude": 1.727825980507864e-07,
+                "cameraPosition": 3.349654391578276e-07, "point": 100.0, "position": 0.00011220184543019634,
+                "velocity": 3.6517412725483775e-06,
+            },
+            "measurementNoise": {
+                "feature": 3.7583740428844425, "featureOutlierAbs": 5.4509224619256385,
+                "featureOutlierProb": 0.23374912831534894, "featureRetention": 0.2,
+            },
+            "processVariance": {
+                "attitude": 6.219421634147766e-08, "biasAcc": 0.0, "biasGyr": 0.0,
+                "cameraAttitude": 2.2630153511576583e-06, "cameraPosition": 6.853895838650084e-07,
+                "point": 0.000530103448340995, "position": 1.2589961848499808e-05, "velocity": 0.012232071190499315,
+            },
+            "settings": {
+                "coordinateChoice": "InvDepth", "fastRiccati": True, "useDiscreteStateMatrix": False,
+                "useDiscreteInnovationLift": False, "useDiscreteVelocityLift": True, "useEquivariantOutput": True,
+                "useFeaturePredictions": False, "useMedianDepth": False, "removeLostLandmarks": True,
+            },
+            "velocityNoise": {
+                "acc": 3.262345818455677e-05, "accBias": 0.0063404671195099425, "gyr": 0.0011913242870580211,
+                "gyrBias": 0.00020008996495836354,
+            },
+        },
+        "GIFT": {
+            "kltMode": "mxu", "equaliseImageHistogram": True, "featureDist": 25.91373395034039,
+            "featureSearchThreshold": 0.7, "maxError": 100.08998519259788, "maxFeatures": 40, "maxLevel": 3,
+            "minHarrisQuality": 0.08859465154404257, "trackedFeatureDist": 9.995503774595479, "winSize": 21,
+            "ransacParams": {"inlierThreshold": 0.0, "maxIterations": 20, "minDataPoints": 10, "minInliers": 37},
+        },
+        "main": {"cameraLag": 0.0, "limitRate": 0.0, "startTime": 0.0, "writeState": True},
     }
 
 
@@ -170,9 +215,17 @@ def settings_from_config(cfg: dict, warn: bool = False) -> Settings:
 
 def tracker_config_from_config(cfg: dict) -> TrackerConfig:
     """Tracker config from the ``GIFT:`` section; ``maxError`` is on 0-255
-    intensities and converts to the tracker's 0-1 images by /255."""
+    intensities and converts to the tracker's 0-1 images by /255.
+
+    ``kltMode`` takes the JAX package's values (``auto``, ``gather``,
+    ``mxu``, ``pallas``; another raises).  Every value runs this package's
+    one KLT, the CUDA kernel on the card and its plain version on the CPU:
+    both compute the gather path's semantics, which ``mxu`` matches to
+    8e-6 px."""
     gift = cfg.get("GIFT", {})
     g = lambda k, d: gift.get(k, d)  # noqa: E731
+    if g("kltMode", "auto") not in KLT_MODES:
+        raise ValueError(f"unknown kltMode {g('kltMode', 'auto')!r} (use one of {', '.join(KLT_MODES)})")
     return TrackerConfig(
         max_features=int(g("maxFeatures", 30)),
         feature_dist=int(g("featureDist", 20)),

@@ -4,8 +4,9 @@
 kernel at the main path's shape, taken here once: frames 100 and 101 of the
 benchmark scene (752x480, 4-level pyramids, win 21, 8 steps) with the
 scene's detected corners (N = 30, guesses = positions), and the same plus
-:func:`border_features` (38).  The timers need a CUDA device; nothing here
-runs at import.
+:func:`border_features` (38).  :func:`klt_case` with the racing proxy's
+reader and config gives the fisheye shape: equalised 640x480 frames and 40
+corners.  The timers need a CUDA device; nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from typing import NamedTuple
 import torch
 
 from ..data import bench_scene
-from ..frontend import build_pyramid, detect_features
+from ..frontend import build_pyramid, detect_features, equalize_histogram
 from ..io import bench_config, tracker_config_from_config
 
 ITERS = 8  # Gauss-Newton steps per level on the main path
@@ -32,26 +33,33 @@ def border_features(height: int, width: int) -> list[list[float]]:
 class KltCase(NamedTuple):
     pyr0: list
     pyr1: list
-    main: torch.Tensor  # [30, 2] detected corners: the main path's shape
-    pair: torch.Tensor  # [38, 2] the corners and the border features
+    main: torch.Tensor  # [N, 2] detected corners: the main path's shape
+    pair: torch.Tensor  # [N + 8, 2] the corners and the border features (the corners alone below 752x480)
     win: int
     iters: int
     max_error: float
 
 
-def klt_case(device, reader=None, frames: tuple[int, int] = (100, 101)) -> KltCase:
-    """The frame pair of the benchmark scene (or ``reader``) on ``device``."""
+def klt_case(device, reader=None, frames: tuple[int, int] = (100, 101), config: dict | None = None) -> KltCase:
+    """The frame pair of the benchmark scene (or ``reader``) on ``device``,
+    as the tracker of ``config`` (the benchmark's by default) sees it:
+    equalised if the config says so, and its ``maxFeatures`` corners
+    detected with its spacing and quality."""
     reader = bench_scene(8.0) if reader is None else reader
-    tcfg = tracker_config_from_config(bench_config())
+    tcfg = tracker_config_from_config(bench_config() if config is None else config)
     levels, win = tcfg.max_level + 1, tcfg.win_size
     f0, f1 = (torch.tensor(reader.load_image_u8(i), device=device).float() * (1.0 / 255.0) for i in frames)
-    corners, valid = detect_features(f0, tcfg.max_features, min_dist=tcfg.feature_dist, border=win)
+    if tcfg.equalize_histogram:
+        f0, f1 = equalize_histogram(f0), equalize_histogram(f1)
+    corners, valid = detect_features(f0, tcfg.max_features, min_dist=tcfg.feature_dist,
+                                     quality=tcfg.min_harris_quality, border=win)
     if int(valid.sum()) < tcfg.max_features:
         raise RuntimeError(f"only {int(valid.sum())} corners detected on frame {frames[0]}")
     main = corners[valid].contiguous()
-    border = torch.tensor(border_features(*f0.shape), device=device)
-    return KltCase(build_pyramid(f0, levels), build_pyramid(f1, levels), main,
-                   torch.cat([main, border]).contiguous(), win, ITERS, tcfg.max_error)
+    pair = main
+    if f0.shape[1] >= 752:
+        pair = torch.cat([main, torch.tensor(border_features(*f0.shape), device=device)]).contiguous()
+    return KltCase(build_pyramid(f0, levels), build_pyramid(f1, levels), main, pair, win, ITERS, tcfg.max_error)
 
 
 def cuda_ms(fn, reps: int = 50) -> float:

@@ -24,6 +24,16 @@ def mv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return (M @ v.unsqueeze(-1)).squeeze(-1)
 
 
+def jacfwd(fn, x: torch.Tensor) -> torch.Tensor:
+    """``d fn(x) / d x`` by ``torch.func.jacfwd``, with ``fn`` evaluated on
+    ``x`` under a leading axis of one.
+
+    Forward AD promotes a 0-dim float32 tangent to float64 where it meets a
+    Python number (``1.0 + t2 * k1``, the Taylor branches); with the extra
+    axis no dual value is 0-dim, so the result keeps ``x``'s dtype."""
+    return torch.func.jacfwd(lambda e: fn(e[None])[0])(x)
+
+
 def eye3(like: torch.Tensor) -> torch.Tensor:
     return torch.eye(3, dtype=like.dtype, device=like.device)
 

@@ -1,10 +1,10 @@
 """EqF linearisation matrices A, B, C and innovation lifts (counterpart of
-``eqvio_tpu/matrices.py``), for the inverse-depth coordinate suite.
+``eqvio_tpu/matrices.py``) for the Euclidean, inverse-depth and normal
+coordinate suites, and the discrete state matrix of any suite.
 
-The euclid helpers below are the shared building blocks the InvDepth suite
-conjugates; the Euclidean and Normal suites themselves wait for the
-"other filter modes" slice (``ROADMAP.md`` queue 1), and :func:`get_suite`
-raises for them.
+The InvDepth and Normal suites conjugate the Euclidean blocks landmark by
+landmark; the Normal suite's 21x21 sensor transition and the discrete state
+matrix are exact forward-mode derivatives (``torch.func.jacfwd``).
 
 Layout: bias 6 | pose 6 | velocity 3 | camera offset 6 | landmarks 3N.
 Inactive slots have their rows and columns masked to zero.
@@ -17,14 +17,19 @@ from typing import Callable, NamedTuple
 import torch
 
 from .charts import (
+    STATE_CHARTS,
     StateChart,
     euclid_invdepth_block,
     invdepth_euclid_block,
     point_chart_invdepth_inv,
-    state_chart_invdepth,
+    sensor_chart_normal,
+    sensor_chart_normal_inv,
+    sensor_chart_std,
+    sensor_chart_std_inv,
+    sphere_chart_normal,
 )
-from .group import VIOAlgebra, VIOGroup, state_action
-from .lie import SOT3, cross, mv, se3_Adjoint, se3_adjoint, se3_exp, se3_inv, se3_mul, skew, so3_from_vectors
+from .group import VIOAlgebra, VIOGroup, group_inv, group_mul, lift_velocity_discrete, state_action
+from .lie import SOT3, cross, jacfwd, mv, se3_Adjoint, se3_adjoint, se3_exp, se3_inv, se3_mul, skew, so3_from_vectors
 from .states import GRAVITY, IMU, SENSOR_DIM, VIOState, split_coords_vector
 
 
@@ -118,6 +123,14 @@ def _assemble_A(xi0: VIOState, B_full, ad_term, lm_vel, lm_cam, lm_diag):
     return A
 
 
+def state_matrix_A_euclid(X: VIOGroup, xi0: VIOState, imu: IMU) -> torch.Tensor:
+    """State matrix ``A0_t [D, D]`` in euclid landmark coordinates."""
+    B_full = input_matrix_B_euclid(X, xi0)
+    xi_hat, ad_term, common, v_C = _A_sensor_and_terms(X, xi0, imu)
+    lm_vel, lm_cam, lm_diag = _A_landmark_blocks_euclid(X, xi0, xi_hat, common, v_C)
+    return _assemble_A(xi0, B_full, ad_term, lm_vel, lm_cam, lm_diag)
+
+
 def _DRho(y_bearing: torch.Tensor, camera) -> torch.Tensor:
     """``projJac(y) @ [skew(y) | 0]``: ``[..., 2, 4]``."""
     zero = torch.zeros(*y_bearing.shape[:-1], 3, 1, dtype=y_bearing.dtype, device=y_bearing.device)
@@ -155,6 +168,29 @@ def lift_innovation_euclid(Gamma: torch.Tensor, xi0: VIOState) -> VIOAlgebra:
     w_rot = -cross(q0, gamma_q) / q_sq[..., None]
     w_scale = -torch.sum(q0 * gamma_q, dim=-1) / q_sq
     return VIOAlgebra(u_beta, U_A, u_w, U_B, torch.cat([w_rot, w_scale[..., None]], dim=-1))
+
+
+def _lift_discrete_sensor(Gamma: torch.Tensor, xi0: VIOState):
+    beta = Gamma[..., 0:6]
+    A = se3_exp(Gamma[..., 6:12])
+    w = xi0.sensor.velocity - mv(A.R, xi0.sensor.velocity + Gamma[..., 12:15])
+    T0 = xi0.sensor.camera_offset
+    B = se3_mul(se3_inv(T0), se3_mul(A, se3_mul(T0, se3_exp(Gamma[..., 15:21]))))
+    return beta, A, w, B
+
+
+def _landmark_sot3(q0: torch.Tensor, q1: torch.Tensor) -> SOT3:
+    """The SOT(3) element taking ``q1`` to ``q0``: rotation of the
+    directions and the ratio of the norms."""
+    n0 = torch.clamp(torch.linalg.norm(q0, dim=-1), min=1e-12)
+    n1 = torch.clamp(torch.linalg.norm(q1, dim=-1), min=1e-12)
+    return SOT3(so3_from_vectors(q1 / n1[..., None], q0 / n0[..., None]), n0 / n1)
+
+
+def lift_innovation_discrete_euclid(Gamma: torch.Tensor, xi0: VIOState) -> VIOGroup:
+    beta, A, w, B = _lift_discrete_sensor(Gamma, xi0)
+    _, gamma_q = split_coords_vector(Gamma, xi0.capacity)
+    return VIOGroup(beta, A, w, B, _landmark_sot3(xi0.landmarks, xi0.landmarks + gamma_q))
 
 
 # ---------------------------------------------------------------------------
@@ -196,18 +232,129 @@ def lift_innovation_invdepth(Gamma: torch.Tensor, xi0: VIOState) -> VIOAlgebra:
 
 
 def lift_innovation_discrete_invdepth(Gamma: torch.Tensor, xi0: VIOState) -> VIOGroup:
-    beta = Gamma[..., 0:6]
-    A = se3_exp(Gamma[..., 6:12])
-    w = xi0.sensor.velocity - mv(A.R, xi0.sensor.velocity + Gamma[..., 12:15])
-    T0 = xi0.sensor.camera_offset
-    B = se3_mul(se3_inv(T0), se3_mul(A, se3_mul(T0, se3_exp(Gamma[..., 15:21]))))
+    beta, A, w, B = _lift_discrete_sensor(Gamma, xi0)
     _, gamma_q = split_coords_vector(Gamma, xi0.capacity)
     q0 = xi0.landmarks
-    q1 = point_chart_invdepth_inv(gamma_q, q0)
-    n0 = torch.clamp(torch.linalg.norm(q0, dim=-1), min=1e-12)
-    n1 = torch.clamp(torch.linalg.norm(q1, dim=-1), min=1e-12)
-    Q_R = so3_from_vectors(q1 / n1[..., None], q0 / n0[..., None])
-    return VIOGroup(beta, A, w, B, SOT3(Q_R, n0 / n1))
+    return VIOGroup(beta, A, w, B, _landmark_sot3(q0, point_chart_invdepth_inv(gamma_q, q0)))
+
+
+# ---------------------------------------------------------------------------
+# Normal suite: the euclid blocks conjugated by the chart transition, whose
+# sensor block is a forward-mode derivative and landmark blocks analytic
+# ---------------------------------------------------------------------------
+
+
+def _jacobian_at_zero(fn, n: int, like: torch.Tensor, *args) -> torch.Tensor:
+    """``d fn(eps, *args) / d eps`` at ``eps = 0 [n]`` in ``like``'s dtype
+    (:func:`lie.jacfwd`: ``fn`` sees ``eps`` as ``[1, n]``)."""
+    zero = torch.zeros(n, dtype=like.dtype, device=like.device)
+    return jacfwd(lambda e: fn(e, *args), zero)
+
+
+def normal_euclid_sensor_differential(xi0: VIOState) -> torch.Tensor:
+    """Sensor block ``[21, 21]`` of d(normal o euclid^-1) at 0, by forward AD
+    (the transition is block diagonal: the sensor charts touch only sensor
+    components, the landmark charts act slot by slot)."""
+    return _jacobian_at_zero(lambda e, s0: sensor_chart_normal(sensor_chart_std_inv(e, s0), s0),
+                             SENSOR_DIM, xi0.landmarks, xi0.sensor)
+
+
+def euclid_normal_sensor_differential(xi0: VIOState) -> torch.Tensor:
+    """The inverse transition's sensor block, d(euclid o normal^-1) at 0."""
+    return _jacobian_at_zero(lambda e, s0: sensor_chart_std(sensor_chart_normal_inv(e, s0), s0),
+                             SENSOR_DIM, xi0.landmarks, xi0.sensor)
+
+
+def normal_euclid_point_blocks(p0: torch.Tensor) -> torch.Tensor:
+    """Per-landmark ``[N, 3, 3]`` blocks of d(normal o euclid^-1) at 0: the
+    sphere chart's differential of the bearing, then d log(rho) / d p."""
+    r0 = torch.clamp(torch.linalg.norm(p0, dim=-1), min=1e-12)
+    y0 = p0 / r0[..., None]
+    eye = torch.eye(3, dtype=p0.dtype, device=p0.device)
+    P = (eye - y0[..., :, None] * y0[..., None, :]) / r0[..., None, None]
+    top = sphere_chart_normal.chart_diff0(y0) @ P
+    return torch.cat([top, -(y0 / r0[..., None])[..., None, :]], dim=-2)
+
+
+def euclid_normal_point_blocks(p0: torch.Tensor) -> torch.Tensor:
+    """Per-landmark inverse blocks ``[N, 3, 3]``, analytic."""
+    r0 = torch.clamp(torch.linalg.norm(p0, dim=-1), min=1e-12)
+    y0 = p0 / r0[..., None]
+    left = r0[..., None, None] * sphere_chart_normal.chart_inv_diff0(y0)
+    return torch.cat([left, -p0[..., None]], dim=-1)
+
+
+def _conjugate_rows(M_s: torch.Tensor, M_p: torch.Tensor, rows: torch.Tensor, N: int) -> torch.Tensor:
+    """``blockdiag(M_s, M_p[i]) @ rows`` for ``rows [D, k]``."""
+    k = rows.shape[-1]
+    rest = torch.einsum("nij,njk->nik", M_p, rows[SENSOR_DIM:].reshape(N, 3, k)).reshape(3 * N, k)
+    return torch.cat([M_s @ rows[:SENSOR_DIM], rest], dim=0)
+
+
+def state_matrix_A_normal(X: VIOGroup, xi0: VIOState, imu: IMU) -> torch.Tensor:
+    """``M A_euclid M^-1``, block by block, with the analytic inverse blocks."""
+    N = xi0.capacity
+    A1 = _conjugate_rows(normal_euclid_sensor_differential(xi0), normal_euclid_point_blocks(xi0.landmarks),
+                         state_matrix_A_euclid(X, xi0, imu), N)
+    D = A1.shape[-1]
+    left = A1[:, :SENSOR_DIM] @ euclid_normal_sensor_differential(xi0)
+    right = torch.einsum("dni,nij->dnj", A1[:, SENSOR_DIM:].reshape(D, N, 3),
+                         euclid_normal_point_blocks(xi0.landmarks)).reshape(D, 3 * N)
+    return torch.cat([left, right], dim=1)
+
+
+def input_matrix_B_normal(X: VIOGroup, xi0: VIOState) -> torch.Tensor:
+    return _conjugate_rows(normal_euclid_sensor_differential(xi0), normal_euclid_point_blocks(xi0.landmarks),
+                           input_matrix_B_euclid(X, xi0), xi0.capacity)
+
+
+def output_matrix_Ci_star_normal(q0, Q: SOT3, camera, y_pixels) -> torch.Tensor:
+    """Analytic sphere-chart ``C*_i`` (the measured pixels do not enter)."""
+    y0 = q0 / torch.clamp(torch.linalg.norm(q0, dim=-1, keepdim=True), min=1e-12)
+    Qinv_R = Q.R.transpose(-1, -2)
+    block = camera.projection_jacobian(mv(Qinv_R, y0)) @ Qinv_R @ sphere_chart_normal.chart_inv_diff0(q0)
+    return torch.cat([block, torch.zeros_like(block[..., :1])], dim=-1)
+
+
+def output_matrix_Ci_normal(q0, Q: SOT3, camera) -> torch.Tensor:
+    return output_matrix_Ci_star_normal(q0, Q, camera, None)
+
+
+def lift_innovation_normal(Gamma: torch.Tensor, xi0: VIOState) -> VIOAlgebra:
+    eps_sensor, gamma_p = split_coords_vector(Gamma, xi0.capacity)
+    s = mv(euclid_normal_sensor_differential(xi0), eps_sensor)
+    p = mv(euclid_normal_point_blocks(xi0.landmarks), gamma_p)
+    return lift_innovation_euclid(torch.cat([s, p.reshape(*p.shape[:-2], -1)], dim=-1), xi0)
+
+
+def lift_innovation_discrete_normal(Gamma: torch.Tensor, xi0: VIOState) -> VIOGroup:
+    Gamma_euc = STATE_CHARTS["euclid"].chart(STATE_CHARTS["normal"].chart_inv(Gamma, xi0), xi0)
+    return lift_innovation_discrete_euclid(Gamma_euc, xi0)
+
+
+# ---------------------------------------------------------------------------
+# Discrete state matrix of any suite: the exact derivative of the lift's
+# conjugated action in the suite's chart
+# ---------------------------------------------------------------------------
+
+
+def state_matrix_A_discrete(suite: "CoordinateSuite", X: VIOGroup, xi0: VIOState, imu: IMU, dt) -> torch.Tensor:
+    """``[D, D]`` by ``torch.func.jacfwd`` over the full chart (see
+    :func:`_jacobian_at_zero`), inactive landmark rows and columns masked to
+    zero."""
+    chart = suite.chart
+
+    def step(eps, X, xi0, imu, dt):
+        xi_e = chart.chart_inv(eps, xi0)
+        lift_hat_inv = group_inv(lift_velocity_discrete(state_action(X, xi0), imu, dt))
+        lam = group_mul(lift_velocity_discrete(state_action(X, xi_e), imu, dt), lift_hat_inv)
+        return chart.chart(state_action(group_mul(group_mul(X, lam), group_inv(X)), xi_e), xi0)
+
+    dt = torch.as_tensor(dt, dtype=xi0.landmarks.dtype, device=xi0.landmarks.device)
+    A = _jacobian_at_zero(step, xi0.dim(), xi0.landmarks, X, xi0, imu, dt)
+    mask_vec = torch.cat([torch.ones(SENSOR_DIM, dtype=A.dtype, device=A.device),
+                          _mask_f(xi0).repeat_interleave(3)])
+    return A * mask_vec[:, None] * mask_vec[None, :]
 
 
 class CoordinateSuite(NamedTuple):
@@ -222,9 +369,19 @@ class CoordinateSuite(NamedTuple):
 
 
 SUITES = {
+    "euclid": CoordinateSuite(
+        "euclid",
+        STATE_CHARTS["euclid"],
+        state_matrix_A_euclid,
+        input_matrix_B_euclid,
+        output_matrix_Ci_star_euclid,
+        output_matrix_Ci_euclid,
+        lift_innovation_euclid,
+        lift_innovation_discrete_euclid,
+    ),
     "invdepth": CoordinateSuite(
         "invdepth",
-        state_chart_invdepth,
+        STATE_CHARTS["invdepth"],
         state_matrix_A_invdepth,
         input_matrix_B_invdepth,
         output_matrix_Ci_star_invdepth,
@@ -232,16 +389,20 @@ SUITES = {
         lift_innovation_invdepth,
         lift_innovation_discrete_invdepth,
     ),
+    "normal": CoordinateSuite(
+        "normal",
+        STATE_CHARTS["normal"],
+        state_matrix_A_normal,
+        input_matrix_B_normal,
+        output_matrix_Ci_star_normal,
+        output_matrix_Ci_normal,
+        lift_innovation_normal,
+        lift_innovation_discrete_normal,
+    ),
 }
 
 
 def get_suite(name: str) -> CoordinateSuite:
-    """Map a config coordinate choice onto its suite."""
+    """Map a config coordinate choice (Euclidean, InvDepth, Normal) onto its suite."""
     alias = {"euclidean": "euclid", "invdepth": "invdepth", "normal": "normal"}
-    key = alias.get(name.lower(), name.lower())
-    if key not in SUITES:
-        raise NotImplementedError(
-            f"coordinate suite {key!r} is not ported yet (ROADMAP.md queue 1, "
-            "'other filter modes': the Euclidean and Normal suites); use InvDepth"
-        )
-    return SUITES[key]
+    return SUITES[alias.get(name.lower(), name.lower())]

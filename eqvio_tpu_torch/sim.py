@@ -1,11 +1,12 @@
 """Synthetic trajectories and world points (counterpart of the scene part of
-``eqvio_tpu/sim.py``): the ``wave`` and ``room`` trajectories, wall points,
-pose interpolation, IMU by pose differentiation and the exact true state.
+``eqvio_tpu/sim.py``): the ``wave``, ``room`` and ``racing`` trajectories,
+wall points, pose interpolation, IMU by pose differentiation and the exact
+true state.
 
 Scene generation is set-up, not the hot path: it runs in float64 on the
 device it is given (the CPU by default) and is batched over query times.
-The other trajectory kinds, the slot simulator and NEES wait for the
-simulation slice (``ROADMAP.md`` queue 1).
+The other trajectory kinds (``line``, ``sine``, ``square``, ``mh``), the slot
+simulator and NEES wait for the simulation slice (``ROADMAP.md`` queue 1).
 """
 
 from __future__ import annotations
@@ -23,6 +24,30 @@ from .states import GRAVITY
 def _rot_z(ang):
     z = torch.zeros_like(ang)
     return so3_exp(torch.stack([z, z, ang], dim=-1))
+
+
+def _unwrap(p: torch.Tensor) -> torch.Tensor:
+    """``numpy.unwrap`` along the last axis (period 2 pi), in its operation order."""
+    dd = torch.diff(p)
+    ddmod = torch.remainder(dd + math.pi, 2 * math.pi) - math.pi
+    ddmod = torch.where((ddmod == -math.pi) & (dd > 0), torch.full_like(ddmod, math.pi), ddmod)
+    correct = torch.where(torch.abs(dd) < math.pi, torch.zeros_like(dd), ddmod - dd)
+    return torch.cat([p[..., :1], p[..., 1:] + torch.cumsum(correct, dim=-1)], dim=-1)
+
+
+def _gradient(f: torch.Tensor, h: float) -> torch.Tensor:
+    """``numpy.gradient`` along axis 0 with spacing ``h``: central differences
+    inside, one-sided at the ends (the JAX package's operation order)."""
+    inner = (f[2:] - f[:-2]) * 0.5 / h
+    return torch.cat([(f[1:2] - f[0:1]) / h, inner, (f[-1:] - f[-2:-1]) / h], dim=0)
+
+
+def _body_attitude(yaw, pitch, roll):
+    zero = torch.zeros_like(yaw)
+    Rz = so3_exp(torch.stack([zero, zero, yaw], dim=-1))
+    Ry = so3_exp(torch.stack([zero, pitch, zero], dim=-1))
+    Rx = so3_exp(torch.stack([roll, zero, zero], dim=-1))
+    return torch.einsum("tij,tjk,tkl->til", Rz, Ry, Rx)
 
 
 def trajectory_poses(kind: str, end_time: float, frequency: float, dtype=torch.float64, device="cpu"):
@@ -55,11 +80,30 @@ def trajectory_poses(kind: str, end_time: float, frequency: float, dtype=torch.f
                + 0.05 * s(two_pi * tau / 1.6))
         roll = 0.12 * s(two_pi * tau / 4.3) + 0.05 * s(two_pi * tau / 1.4)
         pitch = 0.12 * torch.cos(two_pi * tau / 5.7) + 0.05 * torch.cos(two_pi * tau / 1.6 + 0.5)
-        zero = torch.zeros_like(t)
-        Rz = so3_exp(torch.stack([zero, zero, yaw], dim=-1))
-        Ry = so3_exp(torch.stack([zero, pitch, zero], dim=-1))
-        Rx = so3_exp(torch.stack([roll, zero, zero], dim=-1))
-        R = torch.einsum("tij,tjk,tkl->til", Rz, Ry, Rx)
+        R = _body_attitude(yaw, pitch, roll)
+    elif kind == "racing":
+        # drone-racing figure-eight in an ~18x9x2 m hall with a 3 s stationary
+        # start, yaw along the track tangent, banking from yaw rate x speed
+        two_pi = 2 * math.pi
+        u = torch.clamp(t - 3.0, min=0.0)
+        tau = u - 2.0 * (1.0 - torch.exp(-u / 2.0))
+        A, B = 9.0, 4.5
+        x = torch.stack(
+            [
+                A * torch.sin(two_pi * tau / 14.0),
+                B * torch.sin(2 * two_pi * tau / 14.0),
+                1.0 + 0.8 * torch.sin(two_pi * tau / 6.5),
+            ],
+            dim=-1,
+        )
+        dxdtau = A * (two_pi / 14.0) * torch.cos(two_pi * tau / 14.0)
+        dydtau = B * (2 * two_pi / 14.0) * torch.cos(2 * two_pi * tau / 14.0)
+        yaw = _unwrap(torch.atan2(dydtau, dxdtau))
+        dt_s = 1.0 / frequency
+        speed = torch.linalg.norm(_gradient(x, dt_s), dim=-1)
+        roll = torch.clamp(torch.atan(_gradient(yaw, dt_s) * speed / 9.81), -0.6, 0.6)
+        pitch = torch.clamp(-0.05 * _gradient(speed, dt_s), -0.3, 0.3)
+        R = _body_attitude(yaw, pitch, roll)
     else:
         raise NotImplementedError(
             f"trajectory kind {kind!r} is not ported yet (ROADMAP.md queue 1, simulation path)"

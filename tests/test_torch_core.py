@@ -241,10 +241,11 @@ def test_invdepth_suite_matches_jax(case, model):
 
 
 def test_get_suite_names_roadmap_for_unported_suites():
-    assert TM.get_suite("InvDepth").name == "invdepth"
-    for name in ("Euclidean", "normal"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TM.get_suite(name)
+    """Every coordinate choice the configs name has its suite (the Euclidean
+    and Normal suites were once unported and raised)."""
+    for name, key in (("InvDepth", "invdepth"), ("Euclidean", "euclid"), ("normal", "normal")):
+        assert TM.get_suite(name).name == key
+        assert TM.get_suite(name) is TM.SUITES[key]
 
 
 # ---------------------------------------------------------------------------
@@ -408,22 +409,25 @@ def test_one_qr_frame_fusion_matches_two_qr():
     assert one_qr.Sigma.shape == two_qr.Sigma.shape
     assert torch.equal(one_qr.xi0.mask, two_qr.xi0.mask)
     np.testing.assert_allclose(one_qr.X.A.x.numpy(), two_qr.X.A.x.numpy(), atol=1e-9)
-    S1, S2 = TF.dense_sigma(one_qr).numpy(), TF.dense_sigma(two_qr).numpy()
+    S1, S2 = TF.dense_sigma(one_qr, settings).numpy(), TF.dense_sigma(two_qr, settings).numpy()
     scale = max(1.0, np.abs(S2).max())
     np.testing.assert_allclose(S1 / scale, S2 / scale, atol=1e-9)
 
 
 def test_unported_filter_modes_raise():
-    st = TF.init_state(TF.Settings(sqrt_covariance=True, fast_riccati=True, coordinate_choice="invdepth"),
-                       4, F64, "cpu")
+    """The modes that once raised (per-sample Riccati, the continuous
+    velocity lift, dense covariance) now propagate: a window of zero-dt
+    entries leaves every one of them where it was (fast Riccati steps over
+    the window's total dt, clamped to 1e-9 s)."""
     imu = TS.IMU(*(torch.zeros(K, 3, dtype=F64) if i else torch.zeros(K, dtype=F64) for i in range(5)))
-    for bad in (dict(fast_riccati=False), dict(use_discrete_velocity_lift=False)):
-        s = TF.Settings(**{"sqrt_covariance": True, "fast_riccati": True,
-                           "coordinate_choice": "invdepth", **bad})
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TF.propagate_window(st, imu, torch.zeros(K, dtype=F64), s)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TF.init_state(TF.Settings(coordinate_choice="invdepth"), 4, F64, "cpu")
+    for mode in (dict(fast_riccati=False), dict(use_discrete_velocity_lift=False),
+                 dict(fast_riccati=False, use_accurate_riccati=True),
+                 dict(fast_riccati=False, use_discrete_state_matrix=True), dict(sqrt_covariance=False)):
+        s = TF.Settings(**{"sqrt_covariance": True, "fast_riccati": True, "coordinate_choice": "invdepth", **mode})
+        st = TF.init_state(s, 4, F64, "cpu")
+        out = TF.propagate_window(st, imu, torch.zeros(K, dtype=F64), s)
+        torch.testing.assert_close(TF.dense_sigma(out, s), TF.dense_sigma(st, s), atol=1e-9, rtol=0)
+        torch.testing.assert_close(out.X.A.x, st.X.A.x, atol=1e-12, rtol=0)
 
 
 @pytest.mark.parametrize("kind", ["wave", "room"])

@@ -13,10 +13,11 @@ import pytest
 import torch
 
 from eqvio_tpu_torch.app import run_opt as R
-from eqvio_tpu_torch.data import DataServer, SyntheticASLReader, shifted_texture_pair
+from eqvio_tpu_torch.data import DataServer, SyntheticASLReader, racing_proxy, shifted_texture_pair
 from eqvio_tpu_torch.frontend import build_pyramid, tracker
-from eqvio_tpu_torch.io import bench_config
+from eqvio_tpu_torch.io import bench_config, racing_proxy_config, template_config
 from eqvio_tpu_torch.kernels import klt as K
+from eqvio_tpu_torch.kernels import klt_bench as B
 from eqvio_tpu_torch.runtime import configure_runtime
 
 WIN, ITERS, LEVELS = 21, 8, 4
@@ -49,7 +50,7 @@ def test_klt_kernel_matches_plain_on_card(cuda_device):
     assert int(ok.sum()) >= 20
 
 
-def _hold_to_plain(pyr0, pyr1, pos, guess, truth=None):
+def _hold_to_plain(pyr0, pyr1, pos, guess, truth=None, max_error=0.08):
     """Kernel against plain version: equal tracked masks, <= 2e-4 px (the
     reductions' order differs from torch.sum's: float32 round-off only).
     With ``truth``, positions are compared where the plain track lies within
@@ -61,8 +62,8 @@ def _hold_to_plain(pyr0, pyr1, pos, guess, truth=None):
     torch.cuda.synchronize()
     assert K.klt_track_pyramid.launches == before + 1
     pos_p, err_p = K.klt_track_pyramid_plain(pyr0, pyr1, pos, guess, WIN, ITERS)
-    ok = (err_p < 0.08) & torch.isfinite(pos_p).all(1)
-    assert torch.equal(ok, (err_k < 0.08) & torch.isfinite(pos_k).all(1))
+    ok = (err_p < max_error) & torch.isfinite(pos_p).all(1)
+    assert torch.equal(ok, (err_k < max_error) & torch.isfinite(pos_k).all(1))
     held = ok if truth is None else ok & ((pos_p - truth).norm(dim=1) < 0.05)
     torch.testing.assert_close(pos_k[held], pos_p[held], atol=2e-4, rtol=0)
     torch.testing.assert_close(err_k[held], err_p[held], atol=1e-5, rtol=0)
@@ -98,6 +99,17 @@ def test_klt_kernel_feature_counts(cuda_device, n):
     pts = torch.tensor(rng.uniform([16, 16], [304, 224], (n, 2)), dtype=torch.float32, device=cuda_device)
     ok = _hold_to_plain(pyr0, pyr1, pts, pts)
     assert int(ok.sum()) >= (n + 1) // 2
+
+
+@pytest.mark.cuda
+def test_klt_kernel_matches_plain_at_racing_shape(cuda_device):
+    """Frames 100 and 101 of the racing proxy, equalised, with its 40
+    detected corners and its residual gate (``maxError`` 100 of 255): the
+    fisheye main path's shape (640x480, 4 levels)."""
+    case = B.klt_case(cuda_device, racing_proxy(end_time=3.8), config=racing_proxy_config())
+    assert case.main.shape == (40, 2) and case.pyr0[0].shape == (480, 640)
+    ok = _hold_to_plain(case.pyr0, case.pyr1, case.main, case.main, max_error=case.max_error)
+    assert int(ok.sum()) >= 30
 
 
 @pytest.mark.cuda
@@ -165,13 +177,14 @@ def fused_inputs(reader, config, frames: int, device: str, dtype=torch.float32):
             state, trk, settings, tcfg, camera, win)
 
 
-def _fused_case(device, frames: int = 10):
+def _fused_case(device, frames: int = 10, config: dict | None = None, dtype=torch.float32):
     """The fused path's inputs for ``frames`` frames of a small scene on the
     card, and a chunk runner from its attitude-initialised state."""
     reader = SyntheticASLReader(end_time=2.0, width=320, height=240, frame_freq=10.0, num_points=300)
-    imgs, meta, state, trk, settings, tcfg, camera, win = fused_inputs(reader, bench_config(), frames, "cuda")
-    runner = R.ChunkRunner(tcfg, settings, settings.suite, camera, win, torch.float32, state, trk, device)
-    step = R._make_frame_fn(tcfg, settings, settings.suite, camera, win, torch.float32)
+    config = bench_config() if config is None else config
+    imgs, meta, state, trk, settings, tcfg, camera, win = fused_inputs(reader, config, frames, "cuda", dtype)
+    runner = R.ChunkRunner(tcfg, settings, settings.suite, camera, win, dtype, state, trk, device)
+    step = R._make_frame_fn(tcfg, settings, settings.suite, camera, win, dtype)
     return imgs, meta, runner, step, (state, trk), tcfg.max_features
 
 
@@ -193,6 +206,23 @@ def test_graph_replay_matches_eager_steps(cuda_device):
         assert torch.equal(outs[i, 34 + 3 * N:34 + 5 * N], ref[34 + 3 * N:34 + 5 * N]), f"frame {i} landmarks"
         torch.testing.assert_close(outs[i, 9:12], ref[9:12], atol=1e-5, rtol=0)
     assert int(outs[-1, 34 + 8 * N:].sum()) >= 10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["sqrt-f32", "dense-f64"])
+def test_accurate_riccati_replay_matches_eager_steps(cuda_device, dtype):
+    """The template config's frame step (accurate Riccati with the on-device
+    expm, Euclidean, median depth; square-root in float32, dense in float64)
+    replayed from the graph equals the same step run eagerly: the same ids
+    and masks, positions within 1e-5 m."""
+    imgs, meta, runner, step, carry, N = _fused_case(cuda_device, frames=4, config=template_config(), dtype=dtype)
+    outs = runner.run(imgs, meta)
+    assert runner.step.graph is not None
+    for i in range(imgs.shape[0]):
+        carry, ref = step(carry, imgs[i], meta[i])
+        assert torch.equal(outs[i, 34 + 7 * N:], ref[34 + 7 * N:]), f"frame {i} ids or masks"
+        torch.testing.assert_close(outs[i, 9:12], ref[9:12], atol=1e-5, rtol=0)
+    assert bool(torch.isfinite(outs).all())
 
 
 @pytest.mark.cuda

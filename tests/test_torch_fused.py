@@ -8,7 +8,9 @@ port's own per-frame loop, on the hermetic synthetic ASL scene of
 - It equals the port's per-frame run in every CSV to 1e-9.
 - The frame step runs under a guard that raises on every host sync and on
   every tensor built from host data, which is what a CUDA graph capture
-  refuses.
+  refuses: with the bench config, with feature predictions, with the racing
+  proxy's fisheye config and with the template config's accurate Riccati
+  in dense covariance.
 - ``predict_state``, ``process_vision(do_update=False)`` and the device-gated
   tracker step equal their JAX counterparts.
 """
@@ -33,9 +35,9 @@ from eqvio_tpu.io import load_config
 from eqvio_tpu_torch import camera as TCam
 from eqvio_tpu_torch import convert
 from eqvio_tpu_torch import filter as TF
-from eqvio_tpu_torch.data import SyntheticASLReader
+from eqvio_tpu_torch.data import SyntheticASLReader, SyntheticUZHFPVReader
 from eqvio_tpu_torch.frontend import tracker as ttracker
-from eqvio_tpu_torch.io import bench_config
+from eqvio_tpu_torch.io import bench_config, template_config
 from tests.test_torch_core import (
     F64,
     NCAP,
@@ -246,16 +248,32 @@ def test_guard_catches_host_syncs():
         torch.where(x > 1, x, 0.0).sum()
 
 
-@pytest.mark.parametrize("predictions", [False, True], ids=["bench", "feature-predictions"])
-def test_frame_step_has_no_host_sync(predictions):
+def _guard_case(case: str):
+    """``(reader, config, dtype)`` of a guarded frame-step case: the bench
+    config (with feature predictions), the racing proxy's config on a small
+    fisheye scene in float32 (square-root, as on the card), and the template
+    config (accurate Riccati, Euclidean, median depth) in dense float64."""
+    if case == "racing":
+        reader = SyntheticUZHFPVReader(end_time=1.5, width=160, height=120, frame_freq=10.0, num_points=150)
+        return reader, load_config(os.path.join(REPO, "configs", "config_racing_proxy.yaml")), torch.float32
+    reader = SyntheticASLReader(end_time=1.5, width=160, height=120, frame_freq=10.0, num_points=150)
+    if case == "template-dense":
+        return reader, template_config(), F64
+    cfg = bench_config()
+    cfg["eqf"]["settings"]["useFeaturePredictions"] = case == "feature-predictions"
+    return reader, cfg, F64
+
+
+@pytest.mark.parametrize("case", ["bench", "feature-predictions", "racing", "template-dense"])
+def test_frame_step_has_no_host_sync(case):
     """After one warm-up frame (which builds the cached constants), the
     frame step runs a full chunk under the guard, padded tail included."""
-    cfg = bench_config()
-    cfg["eqf"]["settings"]["useFeaturePredictions"] = predictions
-    reader = SyntheticASLReader(end_time=1.5, width=160, height=120, frame_freq=10.0, num_points=150)
-    imgs_t, meta_t, state, tracker, settings, tcfg, camera, K = fused_inputs(reader, cfg, 6, "cpu", F64)
-    assert settings.use_feature_predictions == predictions
-    runner = torch_run_opt.ChunkRunner(tcfg, settings, settings.suite, camera, K, F64, state, tracker,
+    reader, cfg, dtype = _guard_case(case)
+    imgs_t, meta_t, state, tracker, settings, tcfg, camera, K = fused_inputs(reader, cfg, 6, "cpu", dtype)
+    assert settings.use_feature_predictions == (case == "feature-predictions")
+    assert settings.sqrt_covariance == (case != "template-dense")
+    assert settings.use_accurate_riccati == (case == "template-dense")
+    runner = torch_run_opt.ChunkRunner(tcfg, settings, settings.suite, camera, K, dtype, state, tracker,
                                        torch.device("cpu"))
     meta_t[5:] = 0.0  # a padded tail frame
     runner.run(imgs_t[:1], meta_t[:1])

@@ -26,7 +26,7 @@ from eqvio_tpu_torch import convert
 from eqvio_tpu_torch import data as tdata
 from eqvio_tpu_torch import io as tio
 from eqvio_tpu_torch.data import ASLDatasetReader, SyntheticASLReader
-from eqvio_tpu_torch.io import bench_config, template_config
+from eqvio_tpu_torch.io import bench_config, racing_proxy_config, template_config
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCENE = dict(end_time=4.0, width=320, height=240, frame_freq=10.0, num_points=300)
@@ -56,7 +56,12 @@ def test_template_config_matches_yaml():
     assert template_config() == load_config(os.path.join(REPO, "configs", "config_template.yaml"))
 
 
-@pytest.mark.parametrize("name", ["config_template.yaml", "config_EuRoC.yaml", "config_UZHFPV.yaml"])
+def test_racing_proxy_config_matches_yaml():
+    assert racing_proxy_config() == load_config(os.path.join(REPO, "configs", "config_racing_proxy.yaml"))
+
+
+@pytest.mark.parametrize("name", ["config_template.yaml", "config_EuRoC.yaml", "config_UZHFPV.yaml",
+                                  "config_racing_proxy.yaml", "config_v101_proxy.yaml", "config_mh03_proxy.yaml"])
 def test_config_readers_match_jax(name):
     cfg = load_config(os.path.join(REPO, "configs", name))
     assert convert.settings_from_jax_settings(jio.settings_from_config(cfg)) == tio.settings_from_config(cfg)
