@@ -18,13 +18,18 @@ Phases, each printing one line; any failure exits nonzero before the result:
    textured pair moved by (48, -40) px tracked from a zero-motion guess,
    whose coarsest-level iterates travel more than 3 px, and (c) frames 100
    and 101 of the racing proxy (``data.racing_proxy``: 640x480 fisheye,
-   equalised) with its 40 detected corners and ``maxError`` 100.  Then, at
-   the main path's shape (the 30 corners): the kernel's device time per
-   launch from ``torch.profiler`` (and from the replay of 50 launches
-   captured in one CUDA graph), the wrapper's host time per call, the plain
-   version's time, and the bound; and the same at the racing shape.  The
-   racing scene (60 s, 1800 frames) is built once, before this phase, and
-   shared with phase 7.
+   equalised) with its 40 detected corners and ``maxError`` 100, and (d)
+   frames 100 and 101 of the MH_03 proxy (``data.mh03_proxy``: 752x480
+   through the EuRoC cam0 calibration) with 40 corners detected at the
+   spacing the tracker keeps its live tracks (``trackedFeatureDist``, 30 px;
+   one detection at ``featureDist``, 79 px, finds 14 there, and the tracker
+   fills its 40 slots over several frames) and ``maxError`` 76.  Then, at the main path's shape (the 30 corners): the
+   kernel's device time per launch from ``torch.profiler`` (and from the
+   replay of 50 launches captured in one CUDA graph), the wrapper's host
+   time per call, the plain version's time, and the bound; and the same at
+   the racing and MH_03 shapes.  The racing scene (60 s, 1800 frames) and
+   the MH_03 scene (132 s, 2,635 frames) are built once, before this
+   phase, and shared with phases 7 and 10.
 4. slice: the eager per-frame ``run_dataset(chunk_size=1)`` on ``cuda``
    (float32) over the benchmark scene cut
    to 8 s (>= 100 frames): finite and healthy, >= 10 landmarks, one KLT
@@ -46,8 +51,8 @@ Phases, each printing one line; any failure exits nonzero before the result:
    eager ms/frame, the device ms/frame and host decomposition, and from the
    traced chunk the CUDA runtime calls per frame (against those of an eager
    run), the device's idle share over the chunk's device span (the tracer
-   slows the host's graph launches) and against the run's untraced device
-   time per frame, the host's untraced enqueue time per frame, the KLT
+   slows the host's graph launches) and against the same chunk's untraced
+   device time per frame, the host's untraced enqueue time per frame, the KLT
    kernel's device time inside the graph and the largest device kernels per
    frame; the detector's device time, and the capture's seconds and
    graph-pool bytes.
@@ -74,6 +79,36 @@ Phases, each printing one line; any failure exits nonzero before the result:
    20 frames each in float32: finite and healthy.  The KLT wrapper, zeroed
    before each run, must count exactly the eager warm-ups before its
    captures (one capture, four with ``--timing``).
+
+9. simulation: the ``eqvio_sim`` runner (``eqvio_tpu_torch.runner``), its
+   frame step captured once as a CUDA graph and replayed per frame, on the
+   ``wave`` trajectory for 30 s (595 frames, 200 Hz IMU, capacity 32, 30
+   features, 1,000 points on 4 walls): (a) one sequence in float64,
+   landmarks augmented at truth, with the consistency outputs: finite, ATE
+   < 0.01 m, the first 20 frames within 1e-6 m and NEES 1e-6 relative of the
+   CPU float64 run; (b) 128 lanes of one sequence in float32 (InvDepth, fast
+   Riccati, self-initialised): every lane finite with ATE below 1.2x the JAX
+   package's CPU float32 result (``scripts/sim_reference.py``), lane 0 within
+   1e-4 m of a single-lane card run over 20 frames, and the device events
+   per batched frame at most 64 above one lane's (a library loop over the
+   128 lanes in one operation would add at least 127); (c) a fleet of 32
+   different sequences with input and output noise: finite, lanes 0, 1 and
+   31 within 5e-3 m of a CPU float64 fleet of the same three sequences over
+   40 frames, while those sequences' CPU runs differ from each other by more
+   than twice that, so a lane fed another lane's inputs fails.  Each traces 16 frames:
+   one graph launch per frame, and the idle share against the same frames'
+   untraced device time.  Prints ms/frame, device ms/frame, aggregate
+   frames/s, NEES median and mean, attitude RMSE and lane ATEs.
+10. MH_03: the full 132 s MH_03 proxy (``data.mh03_proxy``, 752x480 EuRoC
+   cam0 calibration, IMU noise and bias walks) through ``run_dataset``
+   fused on ``cuda`` in float32 with ``io.mh03_proxy_config``: position
+   RMSE <= 0.056 m and scale within 0.05 of 1; over the first 20 frames the
+   same tracked ids as an eager card run with positions within 1e-4 m, and
+   within 0.05 m of a CPU float64 run; one ``klt_pyramid_kernel`` per whole
+   graph launch in its traced chunk.  The KLT wrapper's count is zeroed
+   before each card run: one launch per frame in the eager run, and in the
+   fused run exactly the eager warm-ups before its one capture.  Prints
+   ms/frame, device ms/frame, the idle share and RMSE.
 
 Then one JSON line with the kernels' numbers and, last, the result line
 ``{"ok": true, "device": {...}}``.
@@ -106,8 +141,30 @@ LAUNCH_CALLS = {"cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cu
 DEVICE_CATS = {"kernel", "gpu_memcpy", "gpu_memset"}  # a chrome trace's device work
 TRAVEL_PX = 3  # coarsest-level travel of the moved pair's tracks
 PROFILE_CHUNK = 2  # the fused run's chunk that is traced (chunk 0 holds the capture)
+SIM_SECONDS = 30.0  # phase 9: the wave trajectory, 200 Hz IMU, 20 Hz frames
+SIM_FRAMES = 595
+SIM_BATCH = 128
+SIM_FLEET = 32
+SIM_CMP_FRAMES = 20  # frames held against the cpu float64 run or the single-lane card run
+SIM_ATE_A_M = 0.01  # (a): augmented at truth, float64
+SIM_F64_TOL_M = 1e-6  # (a) on the card against the cpu, both float64
+SIM_F64_NEES_RTOL = 1e-6
+SIM_LANE_TOL_M = 1e-4  # (b) lane 0 against one lane, both float32 on the card
+# (b): the JAX package's CPU float32 ATE for this configuration (scripts/sim_reference.py)
+SIM_BATCH_JAX_CPU_ATE_M = 0.0293248825413213
+SIM_BATCH_ATE_FACTOR = 1.2
+# device events per batched frame at most this many above one lane's: a loop
+# over the lanes inside one library call would add at least SIM_BATCH - 1
+SIM_LAUNCH_SLACK = 64
+SIM_FLEET_CMP_FRAMES = 40  # (c): frames held against the cpu float64 fleet
+SIM_FLEET_TOL_M = 5e-3  # (c): float32 card against float64 cpu, about 1e-3 m over 20 frames on an H100
+SIM_WINDOW, SIM_WINDOW_START = 16, 100  # the traced frames of each simulation run
+MH03_SECONDS = 132.0
+MH03_GATE_M = 0.056  # tests/test_proxy_slow.py:MH03_GATE
+MH03_SCALE_TOL = 0.05
 PROFILE_DIR = os.path.join(HERE, "build", "smoke_profile")  # build/ is git-ignored
 RACING_PROFILE_DIR = os.path.join(PROFILE_DIR, "racing")
+MH03_PROFILE_DIR = os.path.join(PROFILE_DIR, "mh03")
 DENSE_PROFILE_DIR = os.path.join(PROFILE_DIR, "dense")
 
 
@@ -273,6 +330,268 @@ def busy_us(device_events) -> float:
     return total
 
 
+def sim_timed(runner):
+    """One run of a simulation runner to capture, then its host wall time
+    per frame (the run, its one synchronisation and the copy of the outputs)
+    and its device time per frame (CUDA events around the replays of a
+    second run); returns ``(wall ms/frame, device ms/frame, result)``."""
+    import torch
+
+    runner()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = runner()
+    wall = time.perf_counter() - t0
+    runner.reset()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    runner.replay(runner.frames)
+    end.record()
+    end.synchronize()
+    return wall * 1e3 / runner.frames, start.elapsed_time(end) / runner.frames, res
+
+
+def sim_window(name, runner, trace_dir, dev) -> dict:
+    """``SIM_WINDOW`` frames of a simulation runner from frame
+    ``SIM_WINDOW_START``: their untraced device time (CUDA events, best of
+    two replays from one snapshot of the carry), then the same frames from
+    the same snapshot under a trace.  The trace must show one graph launch
+    per frame; a launch whose trace holds the most device events is whole.
+    Returns the device events per whole launch, the idle share against the
+    untraced device time, the largest kernels and a note."""
+    import torch
+
+    from eqvio_tpu_torch.app import run_opt as R
+
+    n = SIM_WINDOW
+    runner.reset()
+    runner.replay(SIM_WINDOW_START)
+    snap = runner.step.snapshot()
+    secs = R._best_of(R._device_timer(dev), lambda: runner.replay(n), lambda: runner.step.restore(snap))
+    torch.cuda.synchronize()
+    with R._profiling(trace_dir, sync=dev):
+        runner.replay(n)
+    calls, events, replays, _ = trace_counts(os.path.join(trace_dir, "trace.json"))
+    per = {c: 0 for c in replays}
+    for _, _, _, c in events:
+        if c in per:
+            per[c] += 1
+    if calls.get("cudaGraphLaunch") != n or len(replays) != n:
+        fail(f"{name}: the trace shows {calls.get('cudaGraphLaunch')} graph launches for {n} frames ({calls})")
+    full = max(per.values())
+    busy = busy_us(events) / 1e3 / n
+    untraced = secs * 1e3 / n
+    return {
+        "events_per_launch": full,
+        "device_ms_per_frame": untraced,
+        "largest": largest_kernels(events, n, 6),
+        "note": (f"traced frames {SIM_WINDOW_START}-{SIM_WINDOW_START + n - 1}: one graph launch per frame, "
+                 f"{full} device events per whole launch ({sum(v == full for v in per.values())} of {n} whole), "
+                 f"runtime calls per frame {sum(calls.values()) / n:.2f}, device busy {busy:.3f} ms/frame, idle "
+                 f"share {1.0 - busy / untraced:.3f} against the same frames' untraced {untraced:.3f} ms/frame"),
+    }
+
+
+def phase_sim(dev, card) -> None:
+    """Phase 9: the simulation runner on the card, (a) one sequence in
+    float64 with the consistency outputs, (b) SIM_BATCH lanes of one
+    sequence in float32, (c) a fleet of SIM_FLEET sequences in float32."""
+    import numpy as np
+    import torch
+
+    from eqvio_tpu_torch import filter as F
+    from eqvio_tpu_torch import runner as SR
+
+    f64, f32 = torch.float64, torch.float32
+    scene = dict(capacity=32, max_features=30, end_time=SIM_SECONDS, imu_freq=200.0, frame_freq=20.0, num_walls=4,
+                 num_points=1000)
+
+    # (a) one sequence, float64, landmarks augmented at truth, consistency outputs
+    settings_a = F.Settings(measurement_noise=0.5)
+    inputs_a = SR.prepare_sim_inputs(settings_a, dtype=f64, **scene)
+    run_a = SR.build_sim_runner(settings_a, inputs_a, consistency=True, device="cuda")
+    ms_a, dev_a, res_a = sim_timed(run_a)
+    T = run_a.frames
+    est_a, gt_a = res_a.est_position.numpy(), res_a.true_position.numpy()
+    ate_a, scale_a = SR.ate_rmse(est_a, gt_a)
+    att_a = SR.attitude_rmse(res_a.est_attitude.numpy(), res_a.true_attitude.numpy())
+    nees_a = res_a.nees.numpy()
+    if T != SIM_FRAMES or not np.isfinite(est_a).all() or not np.isfinite(nees_a).all() or ate_a >= SIM_ATE_A_M:
+        fail(f"sim (a): {T} frames (expected {SIM_FRAMES}), finite {np.isfinite(est_a).all()} and "
+             f"{np.isfinite(nees_a).all()}, ATE {ate_a} m (limit {SIM_ATE_A_M})")
+    cpu_a = SR.build_sim_runner(settings_a, inputs_a, consistency=True, device="cpu")
+    cpu_a.replay(SIM_CMP_FRAMES)
+    ref_a = cpu_a.result()
+    n = SIM_CMP_FRAMES
+    d_pos_a = float(np.abs(est_a[:n] - ref_a.est_position[:n].numpy()).max())
+    d_nees_a = float(np.max(np.abs(nees_a[:n] - ref_a.nees[:n].numpy()) / np.abs(ref_a.nees[:n].numpy())))
+    if not d_pos_a <= SIM_F64_TOL_M or not d_nees_a <= SIM_F64_NEES_RTOL:
+        fail(f"sim (a): against the cpu float64 run over {n} frames: positions {d_pos_a} m (limit "
+             f"{SIM_F64_TOL_M}), NEES {d_nees_a} relative (limit {SIM_F64_NEES_RTOL})")
+    win_a = sim_window("sim (a)", run_a, os.path.join(PROFILE_DIR, "sim_a"), dev)
+    print(f"sim (a): wave {SIM_SECONDS:.0f} s, {T} frames, float64 dense, augmented at truth, consistency: "
+          f"{ms_a:.3f} ms/frame, device {dev_a:.3f} ms/frame; ATE {ate_a:.5f} m (scale {scale_a:.4f}), attitude "
+          f"RMSE {att_a:.4f} deg, NEES median {np.median(nees_a):.4f} mean {np.mean(nees_a):.4f}; first {n} frames "
+          f"within {d_pos_a:.3g} m and NEES {d_nees_a:.3g} relative of the cpu float64 run; {win_a['note']} ({card})",
+          flush=True)
+
+    # (b) B lanes of one sequence, float32, self-initialised (the bench's sim settings)
+    settings_b = F.Settings(measurement_noise=0.5, coordinate_choice="invdepth", fast_riccati=True,
+                            use_discrete_innovation_lift=False, use_median_depth=False, initial_scene_depth=2.5)
+    inputs_b = SR.prepare_sim_inputs(settings_b, dtype=f32, **scene)
+    opts_b = dict(augment_true_landmarks=False, compute_nees=False, device="cuda")
+    run_b = SR.build_sim_runner(settings_b, inputs_b, batch=SIM_BATCH, **opts_b)
+    ms_b, dev_b, res_b = sim_timed(run_b)
+    est_b, gt_b = res_b.est_position.numpy(), res_b.true_position.numpy()
+    ates_b = [SR.ate_rmse(e, g)[0] for e, g in zip(est_b, gt_b)]
+    gate_b = SIM_BATCH_ATE_FACTOR * SIM_BATCH_JAX_CPU_ATE_M
+    if est_b.shape != (SIM_BATCH, SIM_FRAMES, 3) or not np.isfinite(est_b).all() or max(ates_b) >= gate_b:
+        fail(f"sim (b): shape {est_b.shape}, finite {np.isfinite(est_b).all()}, worst lane ATE {max(ates_b)} m "
+             f"(gate {gate_b})")
+    one_b = SR.build_sim_runner(settings_b, inputs_b, **opts_b)
+    res_1 = one_b()
+    d_lane0 = float(np.abs(est_b[0, :n] - res_1.est_position[:n].numpy()).max())
+    if not d_lane0 <= SIM_LANE_TOL_M:
+        fail(f"sim (b): lane 0 against the single-lane card run over {n} frames: {d_lane0} m "
+             f"(limit {SIM_LANE_TOL_M})")
+    win_b = sim_window("sim (b)", run_b, os.path.join(PROFILE_DIR, "sim_b"), dev)
+    win_1 = sim_window("sim (b) one lane", one_b, os.path.join(PROFILE_DIR, "sim_b1"), dev)
+    per_b, per_1 = win_b["events_per_launch"], win_1["events_per_launch"]
+    if per_b > per_1 + SIM_LAUNCH_SLACK:
+        fail(f"sim (b): {per_b} device events per batched frame against {per_1} for one lane (limit "
+             f"+{SIM_LAUNCH_SLACK}): the launches grow with the {SIM_BATCH} lanes")
+    print(f"sim (b): {SIM_BATCH} lanes x {T} frames, float32 dense, self-initialised: {SIM_BATCH * T / (ms_b * T / 1e3):.1f} "
+          f"frames/s aggregate ({ms_b:.3f} ms per batched frame on the host clock), device {dev_b:.3f} ms per batched "
+          f"frame; lane ATE median {np.median(ates_b):.5f} worst {max(ates_b):.5f} m (gate {gate_b:.5f} = "
+          f"{SIM_BATCH_ATE_FACTOR} x the JAX package's CPU float32 {SIM_BATCH_JAX_CPU_ATE_M}); lane 0 within "
+          f"{d_lane0:.3g} m of the single-lane card run over {n} frames; device events per frame {per_b} batched "
+          f"against {per_1} for one lane and {win_a['events_per_launch']} for (a); one lane's device time "
+          f"{win_1['device_ms_per_frame']:.3f} ms/frame over the same frames; {win_b['note']} ({card})",
+          flush=True)
+    print(f"sim (b): largest device kernels per batched frame: {win_b['largest']}; one lane: {win_1['largest']} "
+          f"({card})", flush=True)
+
+    # (c) a fleet of K different sequences, float32, input and output noise
+    t0 = time.perf_counter()
+    noisy = dict(scene, input_noise=True, output_noise=True)
+    inputs_c = [SR.prepare_sim_inputs(settings_b, seed=i, noise_seed=i + 1, dtype=f32, **noisy)
+                for i in range(SIM_FLEET)]
+    prep_c = time.perf_counter() - t0
+    run_c = SR.build_fleet_runner(settings_b, inputs_c, device="cuda")
+    ms_c, dev_c, res_c = sim_timed(run_c)
+    est_c, gt_c = res_c.est_position.numpy(), res_c.true_position.numpy()
+    if est_c.shape != (SIM_FLEET, SIM_FRAMES, 3) or not np.isfinite(est_c).all():
+        fail(f"sim (c): shape {est_c.shape}, finite {np.isfinite(est_c).all()}")
+    ates_c = [SR.ate_rmse(e, g)[0] for e, g in zip(est_c, gt_c)]
+    # the cpu float64 fleet of lanes 0, 1 and K-1: each card lane must lie within
+    # the tolerance of its own sequence, and the sequences more than twice it
+    # apart, so that no lane can pass on another lane's inputs or state
+    lanes_c, m = (0, 1, SIM_FLEET - 1), SIM_FLEET_CMP_FRAMES
+    cpu_c = SR.build_fleet_runner(settings_b, [SR.prepare_sim_inputs(settings_b, seed=i, noise_seed=i + 1,
+                                                                     dtype=f64, **noisy) for i in lanes_c],
+                                  device="cpu")
+    cpu_c.replay(m)
+    ref_c = cpu_c.result().est_position[:, :m].numpy()
+    d_fleet = float(np.abs(est_c[list(lanes_c), :m] - ref_c).max())
+    apart_c = min(float(np.abs(ref_c[i] - ref_c[j]).max()) for i in range(3) for j in range(i + 1, 3))
+    if not d_fleet <= SIM_FLEET_TOL_M or not apart_c > 2 * SIM_FLEET_TOL_M:
+        fail(f"sim (c): lanes {lanes_c} against the cpu float64 fleet over {m} frames: {d_fleet} m (limit "
+             f"{SIM_FLEET_TOL_M}); the cpu sequences lie {apart_c} m apart (must exceed {2 * SIM_FLEET_TOL_M})")
+    print(f"sim (c): fleet of {SIM_FLEET} sequences (seeds 0-{SIM_FLEET - 1}, noise seeds 1-{SIM_FLEET}) x {T} frames, "
+          f"float32, input and output noise: {SIM_FLEET * T / (ms_c * T / 1e3):.1f} frames/s aggregate, device "
+          f"{dev_c:.3f} ms per batched frame; lane ATE median {np.median(ates_c):.5f} worst {max(ates_c):.5f} m; "
+          f"lanes {lanes_c} within {d_fleet:.3g} m of the cpu float64 fleet over {m} frames (limit "
+          f"{SIM_FLEET_TOL_M}), whose sequences lie at least {apart_c:.3g} m apart; inputs prepared on the host "
+          f"in {prep_c:.1f} s ({card})", flush=True)
+
+
+def case_times(K, B, case) -> dict:
+    """The KLT kernel at a :class:`klt_bench.KltCase`'s shape (its detected
+    corners, guesses = positions): device ms per launch from the profiler
+    (the replay of 50 launches in one CUDA graph where the profiler records
+    none), the plain version's ms, and the bound."""
+    run = lambda: K.klt_track_pyramid(case.pyr0, case.pyr1, case.main, case.main, case.win, case.iters)  # noqa: E731
+    graph = B.graph_ms(run)
+    prof = B.profiler_ms(run, "klt_pyramid_kernel")
+    plain = B.cuda_ms(lambda: K.klt_track_pyramid_plain(case.pyr0, case.pyr1, case.main, case.main, case.win,
+                                                        case.iters))
+    shapes = [tuple(p.shape) for p in case.pyr0]
+    bound, bound_by = K.bound_ms(len(case.main), shapes, case.win, case.iters)
+    return {"ms": prof if prof is not None else graph, "profiler_ms": prof, "graph_ms": graph, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": bound_by,
+            "shape": f"{len(case.main)} features x {len(shapes)} levels at {shapes[0][1]}x{shapes[0][0]}"}
+
+
+def phase_mh03(mh03, cfg_mh03, build_s, card) -> dict:
+    """Phase 10: the full MH_03 proxy through the fused path in float32,
+    with its first frames against an eager card run and a CPU float64 run
+    and one traced chunk; returns the KLT's counts and in-graph time."""
+    import numpy as np
+    import torch
+
+    from eqvio_tpu_torch import runner as SR
+    from eqvio_tpu_torch.app.run_opt import run_dataset
+    from eqvio_tpu_torch.graph import WARMUP_STEPS
+    from eqvio_tpu_torch.kernels import klt as K
+
+    n = FUSED_FRAMES
+    K.klt_track_pyramid.launches = 0
+    _, eager_m = run_dataset(mh03, cfg_mh03, device="cuda", chunk_size=1, limit_frames=n)
+    torch.cuda.synchronize()
+    launches_m = K.klt_track_pyramid.launches
+    if launches_m != n:
+        fail(f"mh03: {launches_m} KLT kernel launches for the eager run's {n} frames")
+    K.klt_track_pyramid.launches = 0
+    t0 = time.perf_counter()
+    state_m, fused_m = run_dataset(mh03, cfg_mh03, device="cuda", chunk_size=CHUNK, profile_dir=MH03_PROFILE_DIR,
+                                   profile_chunk=PROFILE_CHUNK)
+    torch.cuda.synchronize()
+    wall_m = time.perf_counter() - t0
+    warmup_m = K.klt_track_pyramid.launches
+    _, cpu_m = run_dataset(mh03, cfg_mh03, device="cpu", chunk_size=1, limit_frames=n)
+    check_run("mh03", state_m, fused_m, frames=len(mh03.images.stamps))
+    if warmup_m != WARMUP_STEPS:
+        fail(f"mh03: the KLT wrapper counted {warmup_m} eager launches in the fused run, not the {WARMUP_STEPS} "
+             f"warm-ups before its capture")
+    gt_m = mh03.groundtruth
+    gt_pos_m = np.stack([np.interp(fused_m["stamps"], gt_m.stamps, gt_m.position[:, i]) for i in range(3)], -1)
+    rmse_m, scale_m = SR.ate_rmse(fused_m["positions"], gt_pos_m)
+    if not rmse_m <= MH03_GATE_M or not abs(scale_m - 1.0) <= MH03_SCALE_TOL:
+        fail(f"mh03: position RMSE {rmse_m} m (gate {MH03_GATE_M}), scale {scale_m} (within {MH03_SCALE_TOL} of 1)")
+    if not np.array_equal(fused_m["stamps"][:n], eager_m["stamps"][:n]) or \
+            not np.array_equal(cpu_m["stamps"][:n], eager_m["stamps"][:n]):
+        fail("mh03: the fused, eager and cpu runs' stamps differ")
+    if not np.array_equal(fused_m["feature_ids"][:n], eager_m["feature_ids"][:n]):
+        bad = int(np.argmax((fused_m["feature_ids"][:n] != eager_m["feature_ids"][:n]).any(1)))
+        fail(f"mh03: tracked ids differ from the eager card run from frame {bad}")
+    diff_eager = float(np.abs(fused_m["positions"][:n] - eager_m["positions"][:n]).max())
+    diff_cpu = float(np.abs(fused_m["positions"][:n] - cpu_m["positions"][:n]).max())
+    if not np.isfinite(diff_eager) or diff_eager > FUSED_TOL_M:
+        fail(f"mh03: max position difference to the eager card run {diff_eager} m (limit {FUSED_TOL_M})")
+    if not np.isfinite(diff_cpu) or diff_cpu > CPU_TOL_M:
+        fail(f"mh03: max position difference to the cpu float64 run {diff_cpu} m (limit {CPU_TOL_M})")
+    prof_m = fused_m["profile"]
+    _, events_m, _, klt_m, _, klt_note_m = traced_chunk("mh03", fused_m, MH03_PROFILE_DIR, PROFILE_CHUNK)
+    frames_m = fused_m["frames"]
+    ms_m = (wall_m - fused_m["setup_s"] - prof_m["s"]) * 1e3 / (frames_m - prof_m["frames"])
+    busy_m = busy_us(events_m) / 1e3 / CHUNK
+    print(f"mh03: MH_03 proxy, {frames_m} frames of 752x480 at 20 Hz, fused on cuda f32 (square-root) in chunks of "
+          f"{CHUNK}: {ms_m:.3f} ms/frame without the {fused_m['setup_s']:.2f} s of capture and the traced chunk's "
+          f"{prof_m['s']:.2f} s ({wall_m * 1e3 / frames_m:.3f} with them), device {fused_m['device_ms_per_frame']} "
+          f"ms/frame; position RMSE {rmse_m:.4f} m (sim(3)-aligned, gate {MH03_GATE_M}), scale {scale_m:.4f}; "
+          f"{fused_m['landmarks']} landmarks; first {n} frames: ids equal to the eager card run, positions within "
+          f"{diff_eager:.3g} m of it and {diff_cpu:.3g} m of cpu f64; KLT wrapper {launches_m} launches in the eager "
+          f"run, {warmup_m} eager warm-ups in the fused run; scene built on the host in {build_s:.1f} s ({card})",
+          flush=True)
+    print(f"mh03: traced chunk {PROFILE_CHUNK}: {klt_note_m}, {sum(klt_m) / len(klt_m) / 1e3:.5f} ms each; device "
+          f"busy {busy_m:.3f} ms/frame, idle share {1.0 - busy_m / prof_m['device_ms_per_frame']:.3f} against the "
+          f"same chunk's untraced device time {prof_m['device_ms_per_frame']:.3f} ms/frame; "
+          f"{len(events_m) / CHUNK:.1f} device events per frame; largest by device ms/frame: "
+          f"{largest_kernels(events_m, CHUNK, 8)} ({card})", flush=True)
+    return {"launches": launches_m, "chunk": len(klt_m), "warmup": warmup_m,
+            "graph_replay_ms": sum(klt_m) / len(klt_m) / 1e3}
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, "eqvio_tpu_torch")):
         fail("eqvio_tpu_torch/ is not beside this script: run it from a checkout of the repository")
@@ -294,9 +613,10 @@ def main() -> None:
           f"cuda {torch.version.cuda}", flush=True)
 
     from eqvio_tpu_torch.app.run_opt import run_dataset
-    from eqvio_tpu_torch.data import bench_scene, racing_proxy, shifted_texture_pair
+    from eqvio_tpu_torch.data import bench_scene, mh03_proxy, racing_proxy, shifted_texture_pair
     from eqvio_tpu_torch.frontend import build_pyramid
-    from eqvio_tpu_torch.io import bench_config, racing_proxy_config, settings_from_config, template_config
+    from eqvio_tpu_torch.io import (bench_config, mh03_proxy_config, racing_proxy_config, settings_from_config,
+                                    template_config)
     from eqvio_tpu_torch.kernels import klt as K
     from eqvio_tpu_torch.kernels import klt_bench as B
     from eqvio_tpu_torch.runtime import configure_runtime
@@ -319,6 +639,13 @@ def main() -> None:
     print(f"scene: racing proxy, {len(racing.images.stamps)} frames of {racing.camera.resolution[0]}x"
           f"{racing.camera.resolution[1]}, {len(racing.imu.stamps)} IMU samples, built on the host in "
           f"{racing_build_s:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    mh03 = mh03_proxy(MH03_SECONDS)
+    cfg_mh03 = mh03_proxy_config()
+    mh03_build_s = time.perf_counter() - t0
+    print(f"scene: MH_03 proxy, {len(mh03.images.stamps)} frames of {mh03.camera.resolution[0]}x"
+          f"{mh03.camera.resolution[1]}, {len(mh03.imu.stamps)} IMU samples, built on the host in "
+          f"{mh03_build_s:.1f} s", flush=True)
 
     # ---- 3. kernel against plain, on the card -----------------------------
     reader = bench_scene(SCENE_SECONDS)
@@ -373,8 +700,11 @@ def main() -> None:
     rcase = B.klt_case(dev, racing, config=cfg_r)
     err_race, ok_race, _, _ = hold("racing pair", rcase.pyr0, rcase.pyr1, rcase.main, rcase.main, 30,
                                    max_error=rcase.max_error)
-    if K.klt_track_pyramid.launches != 3:
-        fail(f"kernel: {K.klt_track_pyramid.launches} launches for 3 calls")
+    mcase = B.klt_case(dev, mh03, config=cfg_mh03, spacing="tracked")
+    err_mh03, ok_mh03, _, _ = hold("mh03 pair", mcase.pyr0, mcase.pyr1, mcase.main, mcase.main, 30,
+                                   max_error=mcase.max_error)
+    if K.klt_track_pyramid.launches != 4:
+        fail(f"kernel: {K.klt_track_pyramid.launches} launches for 4 calls")
     top = levels - 1
     coarse, _ = K.track_level(tpyr0[top], tpyr1[top], far / 2**top, far / 2**top, win, iters)
     travelled = int((ok_far & ((coarse - far / 2**top).abs().max(1).values > TRAVEL_PX)).sum())
@@ -401,20 +731,13 @@ def main() -> None:
           f"(profiler {ms_prof}, graph replay {ms_graph:.5f}), host {ms_host:.5f} ms/call, plain "
           f"{ms_plain:.4f} ms, bound {ms_bound:.6f} ms ({bound_by}); {len(pos)} features: profiler "
           f"{pair_prof} ms ({card})", flush=True)
-    run_race = lambda: K.klt_track_pyramid(rcase.pyr0, rcase.pyr1, rcase.main, rcase.main, win, iters)  # noqa: E731
-    race_graph = B.graph_ms(run_race)
-    race_prof = B.profiler_ms(run_race, "klt_pyramid_kernel")
-    race_ms = race_prof if race_prof is not None else race_graph
-    race_plain = B.cuda_ms(lambda: K.klt_track_pyramid_plain(rcase.pyr0, rcase.pyr1, rcase.main, rcase.main,
-                                                             win, iters))
-    race_shapes = [tuple(p.shape) for p in rcase.pyr0]
-    race_bound, race_bound_by = K.bound_ms(len(rcase.main), race_shapes, win, iters)
-    rh, rw = race_shapes[0]
-    print(f"kernel: racing pair (equalised frames 100-101, maxError {rcase.max_error * 255:.1f}): max |dpos| "
-          f"{err_race:.3g} px over {int(ok_race.sum())} of {len(rcase.main)}, masks equal; {len(rcase.main)} "
-          f"features x {levels} levels at {rw}x{rh}: device {race_ms:.5f} ms (profiler {race_prof}, graph replay "
-          f"{race_graph:.5f}), plain {race_plain:.4f} ms, bound {race_bound:.6f} ms ({race_bound_by}) ({card})",
-          flush=True)
+    race, mt = case_times(K, B, rcase), case_times(K, B, mcase)
+    for label, c, err, ok, t in (("racing pair (equalised frames 100-101", rcase, err_race, ok_race, race),
+                                 ("MH_03 pair (frames 100-101", mcase, err_mh03, ok_mh03, mt)):
+        print(f"kernel: {label}, maxError {c.max_error * 255:.1f}): max |dpos| {err:.3g} px over {int(ok.sum())} "
+              f"of {len(c.main)}, masks equal; {t['shape']}: device {t['ms']:.5f} ms (profiler {t['profiler_ms']}, "
+              f"graph replay {t['graph_ms']:.5f}), plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.6f} ms "
+              f"({t['bound_by']}) ({card})", flush=True)
 
     # ---- 4. the slice on the card ----------------------------------------
     run_dataset(reader, cfg, device="cuda", chunk_size=1, limit_frames=5)  # warm-up: library handles, allocator
@@ -451,7 +774,7 @@ def main() -> None:
     print(f"cpu: first {n} frames, cpu f64 vs cuda f32 max position difference {diff:.3g} m", flush=True)
 
     # ---- 6. the fused path: the frame step as a CUDA graph ----------------
-    from eqvio_tpu_torch.app.run_opt import WARMUP_STEPS
+    from eqvio_tpu_torch.graph import WARMUP_STEPS
 
     run_dataset(reader, cfg, device="cuda", chunk_size=CHUNK, limit_frames=2 * CHUNK)  # warm-up
     K.klt_track_pyramid.launches = 0
@@ -496,7 +819,7 @@ def main() -> None:
     span_ms = (max(e[2] for e in device_events) - min(e[1] for e in device_events)) / 1e3 / CHUNK
     busy_ms = busy_us(device_events) / 1e3 / CHUNK
     idle = 1.0 - busy_ms / span_ms  # over the traced window, whose host the tracer slows
-    idle_untraced = 1.0 - busy_ms / fused["device_ms_per_frame"]  # against this run's untraced replays
+    idle_untraced = 1.0 - busy_ms / prof["device_ms_per_frame"]  # against the same chunk's untraced replays
     launches_graph = sum(calls.values()) / CHUNK
     host_ms = host_us / 1e3 / CHUNK
 
@@ -527,8 +850,8 @@ def main() -> None:
           f"({json.dumps({k: v / CHUNK for k, v in calls.items()})}) against {launches_eager:.1f} eager "
           f"({EAGER_PROFILE_FRAMES} frames of a separate run); device busy {busy_ms:.3f} ms/frame; idle share "
           f"{idle:.3f} over the traced window ({span_ms:.3f} ms/frame device span, the traced host's calls span "
-          f"{host_ms:.4f} ms/frame), {idle_untraced:.3f} against the run's untraced device time "
-          f"{fused['device_ms_per_frame']} ms/frame; untraced host enqueue {fused['enqueue_ms_per_frame']} "
+          f"{host_ms:.4f} ms/frame), {idle_untraced:.3f} against the same chunk's untraced device time "
+          f"{prof['device_ms_per_frame']:.3f} ms/frame; untraced host enqueue {fused['enqueue_ms_per_frame']} "
           f"ms/frame from an idle card; {klt_note}, {ms_klt_graph:.5f} ms each inside the graph ({card})",
           flush=True)
     print(f"fused: device events per frame in the traced chunk {len(device_events) / CHUNK:.1f}; largest by "
@@ -576,7 +899,7 @@ def main() -> None:
     _, events_r, _, klt_r, _, klt_note_r = traced_chunk("fisheye", fused_r, RACING_PROFILE_DIR, PROFILE_CHUNK)
     ms_fused_r = (wall_r - fused_r["setup_s"] - prof_r["s"]) * 1e3 / (frames_r - prof_r["frames"])
     busy_r = busy_us(events_r) / 1e3 / CHUNK
-    idle_r = 1.0 - busy_r / fused_r["device_ms_per_frame"]
+    idle_r = 1.0 - busy_r / prof_r["device_ms_per_frame"]
     print(f"fisheye: racing proxy, {frames_r} frames on cuda f32 (square-root) in chunks of {CHUNK}: "
           f"{ms_fused_r:.3f} ms/frame without the {fused_r['setup_s']:.2f} s of capture and calibration and the "
           f"traced chunk's {prof_r['s']:.2f} s ({wall_r * 1e3 / frames_r:.3f} with them); device "
@@ -587,7 +910,8 @@ def main() -> None:
           f"KLT wrapper {launches_r} launches in the eager run, {warmup_r} eager warm-ups in the fused run; "
           f"scene built in {racing_build_s:.1f} s ({card})", flush=True)
     print(f"fisheye: traced chunk {PROFILE_CHUNK}: device busy {busy_r:.3f} ms/frame, idle share {idle_r:.3f} against "
-          f"the run's untraced device time; {len(events_r) / CHUNK:.1f} device events per frame; largest by device "
+          f"the same chunk's untraced device time {prof_r['device_ms_per_frame']:.3f} ms/frame; "
+          f"{len(events_r) / CHUNK:.1f} device events per frame; largest by device "
           f"ms/frame: {largest_kernels(events_r, CHUNK, 8)} ({card})", flush=True)
     print(f"fisheye: device sections ms/frame {json.dumps(fused_r['device_sections_ms'])}; searched fraction "
           f"{fused_r['searched_frame_fraction']}; graph capture {fused_r['graph']['capture_s']:.3f} s, pool "
@@ -658,6 +982,12 @@ def main() -> None:
               f"{run_m.get('device_ms_per_frame')} ms/frame; graph capture {run_m['graph']['capture_s']:.3f} s, "
               f"pool {run_m['graph']['pool_bytes']} bytes ({card})", flush=True)
 
+    # ---- 9. simulation: the eqvio_sim runner as a captured frame step -------
+    phase_sim(dev, card)
+
+    # ---- 10. the MH_03 proxy, fused, float32 -------------------------------
+    mh = phase_mh03(mh03, cfg_mh03, mh03_build_s, card)
+
     print(json.dumps({"kernels": [{
         "name": "klt_track_pyramid",
         "route": "cuda",
@@ -679,7 +1009,7 @@ def main() -> None:
         "library_ms": None,
     }, {
         "name": "klt_track_pyramid",
-        "shape": f"racing: {len(rcase.main)} features x {levels} levels at {rw}x{rh}, equalised",
+        "shape": f"racing: {race['shape']}, equalised",
         "route": "cuda",
         "source": "eqvio_tpu_torch/csrc/klt_cuda.cu",
         "replaces": "eqvio_tpu/frontend/pallas_klt.py:106",
@@ -688,12 +1018,30 @@ def main() -> None:
         "fused_chunk_frames": CHUNK,
         "launches_fused_warmup": warmup_r,
         "max_abs_err": err_race,
-        "ms": race_ms,
+        "ms": race["ms"],
         "graph_replay_ms": sum(klt_r) / len(klt_r) / 1e3,
-        "graph_ms": race_graph,
-        "plain_ms": race_plain,
-        "bound_ms": race_bound,
-        "bound_by": race_bound_by,
+        "graph_ms": race["graph_ms"],
+        "plain_ms": race["plain_ms"],
+        "bound_ms": race["bound_ms"],
+        "bound_by": race["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "klt_track_pyramid",
+        "shape": f"MH_03: {mt['shape']}",
+        "route": "cuda",
+        "source": "eqvio_tpu_torch/csrc/klt_cuda.cu",
+        "replaces": "eqvio_tpu/frontend/pallas_klt.py:106",
+        "launches": mh["launches"],
+        "launches_fused_chunk": mh["chunk"],
+        "fused_chunk_frames": CHUNK,
+        "launches_fused_warmup": mh["warmup"],
+        "max_abs_err": err_mh03,
+        "ms": mt["ms"],
+        "graph_replay_ms": mh["graph_replay_ms"],
+        "graph_ms": mt["graph_ms"],
+        "plain_ms": mt["plain_ms"],
+        "bound_ms": mt["bound_ms"],
+        "bound_by": mt["bound_by"],
         "library_ms": None,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -42,6 +42,7 @@ from .. import filter as F
 from ..camera import EquidistantCamera, PinholeCamera, RadTanCamera
 from ..data import DataServer, create_dataset_reader
 from ..frontend import tracker_init, tracker_step
+from ..graph import GraphStep, select
 from ..io import LoopTimer, VIOWriter, load_config, safe_get, settings_from_config, tracker_config_from_config
 from ..io.writer import rotation_to_quaternion
 from ..runtime import check_finite, configure_runtime, debug_nans
@@ -49,7 +50,6 @@ from ..states import IMU
 
 TIMING_LABELS = ["features", "propagation", "preprocessing", "correction", "total vision update",
                  "write output", "total"]
-WARMUP_STEPS = 2  # eager steps on a side stream before capture (library handles, allocator)
 TRACE_TAIL_S = 0.2  # a card trace stays open this long after its block's device work ends
 
 
@@ -189,8 +189,10 @@ def run_dataset(
     ``1`` the per-frame loop.  ``profile_dir`` traces the whole run; with
     ``profile_chunk`` (fused path only) it traces that chunk's dispatch
     alone, from an idle card to the end of its device work, and the summary
-    gains ``profile`` (the chunk, its frames and the seconds the trace
-    held the run).  ``device`` is ``"cuda"`` unless the caller
+    gains ``profile`` (the chunk, its frames, the seconds the trace and
+    the chunk's untraced replays before it held the run, and
+    ``device_ms_per_frame``: the chunk's device time over those replays,
+    from the same carry as the trace).  ``device`` is ``"cuda"`` unless the caller
     asks for ``"cpu"``; without a card the CUDA default raises.  ``dtype``
     is the filter's (float32 on the card, float64 on the CPU by default;
     the front end is float32 everywhere).  The summary holds ``frames``,
@@ -439,13 +441,6 @@ def _imu_from_meta(meta: torch.Tensor, K: int):
     return imu, meta[7 * K:8 * K], meta[8 * K], meta[8 * K + 1] > 0.5
 
 
-def _select(valid: torch.Tensor, a, b):
-    """``a`` where ``valid`` (a 0-dim bool tensor), else ``b``, leaf by leaf."""
-    la, spec = tree_flatten(a)
-    lb, _ = tree_flatten(b)
-    return tree_unflatten([torch.where(valid, x, y) for x, y in zip(la, lb)], spec)
-
-
 def _make_frame_fn(tcfg, settings, suite, camera, imu_window, dtype):
     """The frame step: ``((state, tracker), uint8 image [H, W], meta row
     [8K+2]) -> ((state, tracker), output row [34 + 9N])``.
@@ -473,8 +468,8 @@ def _make_frame_fn(tcfg, settings, suite, camera, imu_window, dtype):
         new_state = F.propagate_window(state, imu_win, dts, settings, suite, wide_factor=True)
         new_state = F.process_vision(new_state, pixels, vis, ids, camera, settings, suite)
         new_state = new_state._replace(t=stamp)
-        state = _select(valid, new_state, state)
-        tracker = _select(valid, new_tracker, tracker)
+        state = select(valid, new_state, state)
+        tracker = select(valid, new_tracker, tracker)
         est = F.state_estimate(state)
         out = torch.cat([
             est.sensor.pose.R.reshape(-1),
@@ -494,83 +489,6 @@ def _make_frame_fn(tcfg, settings, suite, camera, imu_window, dtype):
         return (state, tracker), out
 
     return frame_fn
-
-
-class GraphStep:
-    """``fn(carry, *inputs) -> (new carry, outputs)`` over static buffers.
-
-    The carry (a pytree of tensors) and the inputs live in buffers of fixed
-    address; a call copies its inputs in, runs the step, and the step
-    copies the new carry back over the old one.  On ``cuda`` the step is
-    captured once, at the first call, as a CUDA graph and each call replays
-    it; the outputs are then the graph's own tensors, which the next replay
-    overwrites, so callers copy them out first.  On ``cpu`` each call runs
-    the step directly.  A capture that fails raises: there is no eager
-    fallback on the card.
-    """
-
-    def __init__(self, fn, carry, inputs, device: torch.device):
-        leaves, self._spec = tree_flatten(carry)
-        self.carry = [x.clone() for x in leaves]
-        self.inputs = [x.clone() for x in inputs]
-        self._fn = fn
-        self.device = device
-        self.graph = None
-        self._out = None
-        self.capture_s = None  # seconds to capture and instantiate the graph
-        self.pool_bytes = None  # device memory the capture reserved for the graph's pool
-
-    def _body(self):
-        new, out = self._fn(tree_unflatten(self.carry, self._spec), *self.inputs)
-        for dst, src in zip(self.carry, tree_flatten(new)[0]):
-            dst.copy_(src)
-        return out
-
-    def _capture(self):
-        saved = self.snapshot()
-        cur = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            for _ in range(WARMUP_STEPS):
-                self._body()
-        cur.wait_stream(side)
-        self.restore(saved)  # the warm-up must not advance the carry
-        torch.cuda.synchronize(self.device)
-        torch.cuda.empty_cache()  # as the capture does first, so the difference is the pool's
-        reserved = torch.cuda.memory_reserved(self.device)
-        t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            out = self._body()
-        torch.cuda.synchronize(self.device)
-        self.capture_s = time.perf_counter() - t0
-        self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
-        self.graph, self._out = graph, out
-
-    def __call__(self, *inputs):
-        for buf, x in zip(self.inputs, inputs):
-            buf.copy_(x)
-        if self.device.type != "cuda":
-            return self._body()
-        if self.graph is None:
-            self._capture()
-        self.graph.replay()
-        return self._out
-
-    def load(self, carry) -> None:
-        self.restore(tree_flatten(carry)[0])
-
-    def value(self):
-        """The carry as its pytree (views of the static buffers)."""
-        return tree_unflatten(self.carry, self._spec)
-
-    def snapshot(self) -> list:
-        return [x.clone() for x in self.carry]
-
-    def restore(self, saved: list) -> None:
-        for dst, src in zip(self.carry, saved):
-            dst.copy_(src)
 
 
 class ChunkRunner:
@@ -806,16 +724,21 @@ def _run_fused(server, state, tracker, tcfg, settings, camera, writer, timing, i
     fetcher = threading.Thread(target=fetch_worker, daemon=True)
     fetcher.start()
 
+    def replayed_ms():
+        """The uploaded chunk's device ms/frame, best of two replays from a
+        snapshot of the carry (restored after each); also the snapshot and
+        an output buffer for further replays."""
+        snap = runner.step.snapshot()
+        scratch = torch.empty(C, runner.out_width, dtype=dtype, device=dev)
+        secs = _best_of(timed, lambda: runner.run(dev_imgs, dev_meta, scratch), lambda: runner.step.restore(snap))
+        return secs * 1e3 / C, snap, scratch
+
     def measure(state0, tracker0):
         """Device time of the fused chunk, on the card the host's time to
         enqueue it from an idle card, and with ``timing`` each stage's device
         time, on the first full chunk from snapshots of the carry."""
         nonlocal device_ms_per_frame, enqueue_ms_per_frame, calib
-        snap = runner.step.snapshot()
-        scratch = torch.empty(C, runner.out_width, dtype=dtype, device=dev)
-        secs = _best_of(timed, lambda: runner.run(dev_imgs, dev_meta, scratch),
-                        lambda: runner.step.restore(snap))
-        device_ms_per_frame = secs * 1e3 / C
+        device_ms_per_frame, snap, scratch = replayed_ms()
         if cuda:
             torch.cuda.synchronize(dev)
             t0 = time.perf_counter()
@@ -861,6 +784,12 @@ def _run_fused(server, state, tracker, tcfg, settings, camera, writer, timing, i
         if traced and cuda:
             torch.cuda.synchronize(dev)  # the trace holds this chunk's device work alone
         t_pr0 = time.perf_counter()
+        if traced:
+            # the same chunk's untraced device time, replayed from the same
+            # carry, is what the trace's busy time is read against
+            profiled["device_ms_per_frame"] = replayed_ms()[0]
+            if cuda:
+                torch.cuda.synchronize(dev)
         with _profiling(profile_dir if traced else None, sync=dev if cuda else None):
             t_disp0 = time.perf_counter()
             outs = runner.run(dev_imgs, dev_meta)

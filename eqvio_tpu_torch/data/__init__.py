@@ -1,6 +1,15 @@
 from .asl import ASLDatasetReader, CameraInfo, GroundTruth, ImageSeq, IMUSeq
 from .server import DataServer, Measurement, create_dataset_reader
-from .synthetic import SyntheticASLReader, SyntheticUZHFPVReader, bench_scene, racing_proxy, shifted_texture_pair
+from .synthetic import (
+    SyntheticASLReader,
+    SyntheticUZHFPVReader,
+    bench_scene,
+    distractor_proxy,
+    mh03_proxy,
+    racing_proxy,
+    shifted_texture_pair,
+    v101_proxy,
+)
 from .uzhfpv import UZHFPVDatasetReader
 
 __all__ = [
@@ -16,6 +25,9 @@ __all__ = [
     "UZHFPVDatasetReader",
     "bench_scene",
     "create_dataset_reader",
+    "distractor_proxy",
+    "mh03_proxy",
     "racing_proxy",
     "shifted_texture_pair",
+    "v101_proxy",
 ]

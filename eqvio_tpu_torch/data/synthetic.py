@@ -1,6 +1,6 @@
 """In-memory synthetic scenes (counterpart of
 ``eqvio_tpu/data/synthetic.py``'s ``generate_asl_dataset``,
-``generate_uzhfpv_dataset`` and ``generate_racing_proxy``).
+``generate_uzhfpv_dataset`` and its proxy scenes).
 
 :class:`SyntheticASLReader` and :class:`SyntheticUZHFPVReader` render the
 simulator's world points into frames and serve them, with IMU rows and ground
@@ -62,7 +62,8 @@ def _noisy_imu(sim, imu_times, imu_freq, imu_noise, rng):
     """IMU by pose differentiation, plus white noise at ``density *
     sqrt(f)`` and integrated bias walks when ``imu_noise`` is given
     (``{"gyr", "acc", "gyrBias", "accBias"}``)."""
-    gyr, acc = (v.numpy() for v in sim.get_imu_batch(torch.as_tensor(imu_times, dtype=torch.float64)))
+    imu = sim.get_imu_batch(torch.as_tensor(imu_times, dtype=torch.float64))
+    gyr, acc = imu.gyr.numpy(), imu.acc.numpy()
     if imu_noise is not None:
         n, sqf = len(imu_times), float(np.sqrt(imu_freq))
         gyr = gyr + rng.normal(scale=imu_noise["gyr"] * sqf, size=(n, 3))
@@ -73,8 +74,20 @@ def _noisy_imu(sim, imu_times, imu_freq, imu_noise, rng):
     return gyr, acc
 
 
-def _render_frames(sim, cam, frame_times, width, height, rng, amp, blob_w) -> list:
-    """uint8 frames of the world points seen through ``cam`` at ``frame_times``."""
+def _distractors(num: int, width: int, height: int, seed: int):
+    """Image-pinned distractor blobs: base position, drift amplitude, period
+    and phase [num, 2], appearance amplitude and width [num]."""
+    drng = np.random.default_rng(seed + 5150)
+    base = drng.uniform([0.12 * width, 0.12 * height], [0.88 * width, 0.88 * height], size=(num, 2))
+    ampl = drng.uniform(6.0, 18.0, size=(num, 2))
+    period = drng.uniform(9.0, 23.0, size=(num, 2))
+    phase = drng.uniform(0, 2 * np.pi, size=(num, 2))
+    return base, ampl, period, phase, drng.uniform(1.0, 1.3, num), drng.uniform(2.2, 4.5, num)
+
+
+def _render_frames(sim, cam, frame_times, width, height, rng, amp, blob_w, distractors=None) -> list:
+    """uint8 frames of the world points seen through ``cam`` at ``frame_times``,
+    plus the image-pinned ``distractors`` (:func:`_distractors`) if given."""
     grid = np.mgrid[0:height, 0:width].astype(np.float32)
     frames = []
     for t in frame_times:
@@ -84,31 +97,43 @@ def _render_frames(sim, cam, frame_times, width, height, rng, amp, blob_w) -> li
         px = cam.project(pts).numpy()
         z = pts[:, 2].numpy()
         vis = (z > 0.1) & (px[:, 0] > 0) & (px[:, 0] < width) & (px[:, 1] > 0) & (px[:, 1] < height)
-        img = _render(px, vis, width, height, rng, amp, blob_w, grid)
+        ramp, rwidth = amp, blob_w
+        if distractors is not None:
+            base, ampl, period, phase, d_amp, d_width = distractors
+            px = np.concatenate([px, base + ampl * np.sin(2 * np.pi * t / period + phase)])
+            vis = np.concatenate([vis, np.ones(len(base), dtype=bool)])
+            ramp, rwidth = np.concatenate([amp, d_amp]), np.concatenate([blob_w, d_width])
+        img = _render(px, vis, width, height, rng, ramp, rwidth, grid)
         frames.append((img * 255).astype(np.uint8))
     return frames
 
 
 class SyntheticASLReader:
-    """The synthetic scene of ``generate_asl_dataset`` (no IMU noise, no
-    distractors, zero distortion), served from memory."""
+    """The synthetic scene of ``generate_asl_dataset`` served from memory:
+    optional radial-tangential distortion, IMU noise with bias walks, a
+    ground-truth rate of its own, walls and distractor blobs."""
 
     def __init__(self, end_time: float = 5.0, imu_freq: float = 200.0, frame_freq: float = 20.0,
                  width: int = 320, height: int = 240, num_points: int = 400, seed: int = 0,
-                 kind: str = "wave"):
+                 kind: str = "wave", intrinsics: tuple | None = None, distortion: tuple | None = None,
+                 imu_noise: dict | None = None, gt_freq: float | None = None, num_walls: int = 4,
+                 wall_distance: float = 2.0, num_distractors: int = 0):
         f64 = torch.float64
         sim = Simulator.create(kind=kind, end_time=end_time + 1.0, num_points=num_points,
-                               num_walls=4, seed=seed, wall_distance=2.0)
-        fx = fy = 200.0
-        cx, cy = width / 2, height / 2
-        dist = (0.0, 0.0, 0.0, 0.0)
+                               num_walls=num_walls, seed=seed, wall_distance=wall_distance)
+        if intrinsics is None:
+            fx = fy = 200.0
+            cx, cy = width / 2, height / 2
+        else:
+            fx, fy, cx, cy = intrinsics
+        dist = tuple(distortion) if distortion is not None else (0.0, 0.0, 0.0, 0.0)
         cam = RadTanCamera.create(fx, fy, cx, cy, dist, width, height, dtype=f64, device="cpu")
         rng = np.random.default_rng(seed)
         amp, blob_w = _point_appearance(num_points, seed)
         t0 = 0.2
 
         imu_times = np.arange(t0, end_time, 1.0 / imu_freq)
-        gyr, acc = _noisy_imu(sim, imu_times, imu_freq, None, rng)
+        gyr, acc = _noisy_imu(sim, imu_times, imu_freq, imu_noise, rng)
         self.imu = IMUSeq(_ns_stamps(imu_times), _csv9(gyr), _csv9(acc))
 
         T_BS = np.eye(4)
@@ -116,12 +141,13 @@ class SyntheticASLReader:
         T_BS[:3, 3] = sim.camera_offset.x.numpy()
         self.camera = CameraInfo("radtan", (fx, fy, cx, cy), dist, (width, height), T_BS)
 
+        distractors = _distractors(num_distractors, width, height, seed) if num_distractors > 0 else None
         frame_times = np.arange(t0 + 1.0 / frame_freq, end_time, 1.0 / frame_freq)
-        self.frames = _render_frames(sim, cam, frame_times, width, height, rng, amp, blob_w)
+        self.frames = _render_frames(sim, cam, frame_times, width, height, rng, amp, blob_w, distractors)
         self.images = ImageSeq(_ns_stamps(frame_times),
                                [f"{int(t * 1e9)}.png" for t in frame_times])
 
-        gt_times = np.arange(t0, end_time, 1.0 / frame_freq)
+        gt_times = np.arange(t0, end_time, 1.0 / (gt_freq or frame_freq))
         pose, vel = sim.true_pose_velocity(torch.as_tensor(gt_times, dtype=f64))
         q = rotation_to_quaternion(pose.R.numpy())
         v_inertial = mv(pose.R, vel).numpy()
@@ -199,6 +225,42 @@ def racing_proxy(end_time: float = 60.0, seed: int = 13) -> SyntheticUZHFPVReade
                                  wall_distance=4.0)
 
 
+# EuRoC cam0 (MT9V034, radial-tangential) public calibration of the EuRoC proxies
+EUROC_CAM0_INTRINSICS = (458.654, 457.296, 367.215, 248.375)
+EUROC_CAM0_DISTORTION = (-0.28340811, 0.07395907, 0.00019359, 1.76187114e-05)
+# the EuRoC sensor's true noise densities (ADIS16448 data sheet); the filter
+# keeps the tuned config's velocityNoise
+EUROC_IMU_NOISE = {"gyr": 1.6968e-04, "acc": 2.0000e-03, "gyrBias": 1.9393e-05, "accBias": 3.0000e-03}
+
+
+def _euroc_proxy(end_time: float, seed: int, kind: str, num_points: int, **extra) -> SyntheticASLReader:
+    return SyntheticASLReader(end_time=end_time, imu_freq=200.0, frame_freq=20.0, width=752, height=480,
+                              num_points=num_points, seed=seed, kind=kind, intrinsics=EUROC_CAM0_INTRINSICS,
+                              distortion=EUROC_CAM0_DISTORTION, imu_noise=EUROC_IMU_NOISE, gt_freq=100.0,
+                              num_walls=6, **extra)
+
+
+def v101_proxy(end_time: float = 144.0, seed: int = 11) -> SyntheticASLReader:
+    """The V1_01 proxy of ``generate_v101_proxy``: a 144 s ``room``
+    trajectory with V1_01's path length, 752x480 at 20 Hz through the EuRoC
+    cam0 calibration, 200 Hz IMU with noise and bias walks, 900 points on 6
+    walls, 100 Hz ground truth."""
+    return _euroc_proxy(end_time, seed, "room", 900)
+
+
+def mh03_proxy(end_time: float = 132.0, seed: int = 17) -> SyntheticASLReader:
+    """The MH_03 proxy of ``generate_mh03_proxy``: a 132 s ``mh`` machine-hall
+    sweep with MH_03's path length, 1,400 points on 6 walls 2.5 m out,
+    otherwise as :func:`v101_proxy`."""
+    return _euroc_proxy(end_time, seed, "mh", 1400, wall_distance=2.5)
+
+
+def distractor_proxy(end_time: float = 45.0, seed: int = 21, num_distractors: int = 8) -> SyntheticASLReader:
+    """The distractor scene of ``generate_distractor_proxy``: the V1_01
+    proxy's room motion with image-pinned distractor blobs."""
+    return _euroc_proxy(end_time, seed, "room", 900, num_distractors=num_distractors)
+
+
 def bench_scene(end_time: float = 8.0) -> SyntheticASLReader:
     """The benchmark scene (752x480 frames at 20 Hz, 200 Hz IMU, 600 points,
     seed 4, room trajectory with a stationary start), cut to ``end_time``
@@ -224,4 +286,5 @@ def shifted_texture_pair(height: int, width: int, shift: tuple[int, int], seed: 
     return img, torch.roll(img, shifts=(shift[1], shift[0]), dims=(0, 1)).contiguous()
 
 
-__all__ = ["SyntheticASLReader", "SyntheticUZHFPVReader", "bench_scene", "racing_proxy", "shifted_texture_pair"]
+__all__ = ["SyntheticASLReader", "SyntheticUZHFPVReader", "bench_scene", "distractor_proxy", "mh03_proxy",
+           "racing_proxy", "shifted_texture_pair", "v101_proxy"]

@@ -30,6 +30,7 @@ from .group import (
     group_exp,
     group_has_nan,
     group_identity,
+    group_inv,
     group_mul,
     group_normalize,
     lift_velocity,
@@ -390,7 +391,7 @@ def integrate_riccati_accurate(
     dtype, device = state.Sigma.dtype, state.Sigma.device
     dt = torch.as_tensor(dt, dtype=dtype, device=device)
     dt_safe = torch.where(dt > 0, dt, torch.ones_like(dt))
-    AB = torch.zeros(D + 12, D + 12, dtype=dtype, device=device)
+    AB = state.Sigma.new_zeros(D + 12, D + 12)
     AB[:D, :D] = suite.state_matrix_A(state.X, state.xi0, imu)
     AB[:D, D:] = suite.input_matrix_B(state.X, state.xi0)
     ABexp = expm(dt_safe * AB)
@@ -568,7 +569,7 @@ def update_vision(
             W = Sigma
         Wc = W.shape[1]
         CW = torch.einsum("iax,ixd->iad", C, W[SENSOR_DIM:].reshape(N, 3, Wc)).reshape(m, Wc)
-        pre = torch.zeros(m + D, m + Wc, dtype=dtype, device=device)
+        pre = W.new_zeros(m + D, m + Wc)  # from a state tensor, so a vmap over lanes batches it
         pre[:m, :m] = torch.diag(torch.sqrt(r_diag))
         pre[:m, m:] = CW
         pre[m:, m:] = W
@@ -817,3 +818,129 @@ def health_check(state: EqFState, settings: Settings) -> dict:
     a = state.X.Q.a
     scales_valid = torch.all(torch.where(state.xi0.mask, (a > 1e-8) & (a < 1e8), True))
     return {"nan": nan, "sigma_pd": sigma_pd, "scales_valid": scales_valid}
+
+
+def remove_invalid_landmarks(state: EqFState, settings: Settings) -> EqFState:
+    """Prune the landmarks whose scale left [1e-8, 1e8]."""
+    bad = (state.X.Q.a <= 1e-8) | (state.X.Q.a > 1e8)
+    return remove_landmarks(state, bad & state.xi0.mask, settings)
+
+
+# ---------------------------------------------------------------------------
+# Simulation support: exact states and landmarks
+# ---------------------------------------------------------------------------
+
+
+def _point_cov_diag(capacity: int, settings: Settings, dtype, device) -> torch.Tensor:
+    """``[D]``: zero on the sensor, the initial point variance on every slot."""
+    return torch.cat([torch.zeros(SENSOR_DIM, dtype=dtype, device=device),
+                      settings.initial_point_cov_diag(dtype, device).repeat(capacity)])
+
+
+def _reset_points(state: EqFState, xi0: VIOState, slots: torch.Tensor, settings: Settings) -> torch.Tensor:
+    """The covariance with the rows and columns of ``slots [N]`` reset to the
+    initial point variance, in the state's form."""
+    dtype, device = state.Sigma.dtype, state.Sigma.device
+    full = torch.cat([torch.zeros(SENSOR_DIM, dtype=dtype, device=device),
+                      slots.to(dtype).repeat_interleave(3)])
+    pdiag = _point_cov_diag(xi0.capacity, settings, dtype, device)
+    return _mask_reset(state.Sigma, 1.0 - full, full * pdiag, settings)
+
+
+def set_state(state: EqFState, xi: VIOState, settings: Settings) -> EqFState:
+    """Reset the filter to the exact state ``xi``: identity observer, the
+    initial covariance with inactive slots sanitized."""
+    dtype, device = state.Sigma.dtype, state.Sigma.device
+    capacity = xi.capacity
+    diag = torch.cat([settings.initial_sensor_cov_diag(dtype, device),
+                      settings.initial_point_cov_diag(dtype, device).repeat(capacity)])
+    Sigma0 = torch.diag(torch.sqrt(diag) if settings.sqrt_covariance else diag)
+    return EqFState(xi0=xi, X=group_identity(capacity, dtype, device), Sigma=sanitize_sigma(Sigma0, xi, settings),
+                    t=state.t)
+
+
+def set_landmarks(state: EqFState, landmarks: torch.Tensor, ids: torch.Tensor, mask: torch.Tensor,
+                  settings: Settings) -> EqFState:
+    """Replace every landmark slot with exact values, identity ``Q``, and
+    reset the active slots' covariance."""
+    xi0 = state.xi0._replace(landmarks=landmarks, ids=ids, mask=mask)
+    X = state.X._replace(Q=state.X.Q._replace(R=_eye_like_Q(state), a=torch.ones_like(state.X.Q.a)))
+    Sigma = _reset_points(state, xi0, mask, settings)
+    return state._replace(xi0=xi0, X=X, Sigma=sanitize_sigma(Sigma, xi0, settings))
+
+
+def augment_landmarks(state: EqFState, new_mask: torch.Tensor, ids: torch.Tensor, true_points: torch.Tensor,
+                      settings: Settings) -> EqFState:
+    """Insert new landmark slots at exact (estimate-frame) positions with
+    identity ``Q`` and the initial point variance."""
+    xi0 = state.xi0._replace(
+        landmarks=torch.where(new_mask[:, None], true_points, state.xi0.landmarks),
+        ids=torch.where(new_mask, ids, state.xi0.ids),
+        mask=state.xi0.mask | new_mask,
+    )
+    Q = state.X.Q._replace(
+        R=torch.where(new_mask[:, None, None], _eye_like_Q(state), state.X.Q.R),
+        a=torch.where(new_mask, torch.ones_like(state.X.Q.a), state.X.Q.a),
+    )
+    return state._replace(xi0=xi0, X=state.X._replace(Q=Q), Sigma=_reset_points(state, xi0, new_mask, settings))
+
+
+# ---------------------------------------------------------------------------
+# Consistency metrics against a slot-aligned true state
+# ---------------------------------------------------------------------------
+
+
+def _cholesky(M: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor with no host check; NaN where the factorisation
+    fails, as ``jnp.linalg.cholesky``."""
+    L, info = torch.linalg.cholesky_ex(M)
+    return torch.where(info == 0, L, torch.full_like(L, float("nan")))
+
+
+def _quad(L: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``v^T (L L^T)^-1 v`` through one triangular solve."""
+    w = torch.linalg.solve_triangular(L, v[:, None], upper=False)
+    return torch.sum(w * w)
+
+
+def _error_coords(state: EqFState, true_state: VIOState, suite: CoordinateSuite) -> torch.Tensor:
+    """The chart coordinates of the true state seen from the estimate, zero
+    on inactive slots."""
+    err_state = state_action(group_inv(state.X), true_state)
+    return suite.chart.chart(err_state, state.xi0) * _mask_vec(state.xi0)
+
+
+def compute_nees(state: EqFState, true_state: VIOState, suite: CoordinateSuite | None = None,
+                 settings: Settings | None = None) -> torch.Tensor:
+    """Normalised estimation error squared per degree of freedom against a
+    slot-aligned true state (the simulator provides the alignment)."""
+    settings = settings or Settings()
+    suite = suite or settings.suite
+    eps = _error_coords(state, true_state, suite)
+    L = state.Sigma if settings.sqrt_covariance else _cholesky(state.Sigma)
+    return _quad(L, eps) / (SENSOR_DIM + 3 * torch.sum(state.xi0.mask))
+
+
+def compute_nees_breakdown(state: EqFState, true_state: VIOState, suite: CoordinateSuite | None = None,
+                           settings: Settings | None = None):
+    """``(total, pose, attitude)`` NEES against the marginal Sigma blocks."""
+    total, pose, att, *_ = consistency_outputs(state, true_state, suite, settings)
+    return total, pose, att
+
+
+def consistency_outputs(state: EqFState, true_state: VIOState, suite: CoordinateSuite | None = None,
+                        settings: Settings | None = None):
+    """Everything the simulation's consistency CSVs need, in one pass: total,
+    pose and attitude NEES, the sensor error coordinates ``eps [21]``, the
+    marginal Sigma diagonal ``[21]`` and each slot's landmark position error
+    ``[N]`` (NaN on inactive slots)."""
+    settings = settings or Settings()
+    suite = suite or settings.suite
+    eps = _error_coords(state, true_state, suite)
+    Sig = dense_sigma(state, settings)
+    total = _quad(_cholesky(Sig), eps) / (SENSOR_DIM + 3 * torch.sum(state.xi0.mask))
+    pose = _quad(_cholesky(Sig[6:12, 6:12]), eps[6:12]) / 6.0
+    att = _quad(_cholesky(Sig[6:9, 6:9]), eps[6:9]) / 3.0
+    lm_err = torch.linalg.norm(state_estimate(state).landmarks - true_state.landmarks, dim=-1)
+    lm_err = torch.where(state.xi0.mask, lm_err, torch.full_like(lm_err, float("nan")))
+    return total, pose, att, eps[:SENSOR_DIM], torch.diagonal(Sig)[:SENSOR_DIM], lm_err

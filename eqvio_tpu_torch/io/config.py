@@ -107,6 +107,63 @@ def racing_proxy_config() -> dict:
     }
 
 
+def _euroc_proxy_config(scene_depth: float) -> dict:
+    """The EuRoC proxies' configuration: the reference's tuned stationary-init
+    EuRoC values (InvDepth, fast Riccati, continuous innovation lift, fixed
+    depth, 40 features, the epipolar gate on) with the proxy's measured
+    start-scene depth."""
+    return {
+        "eqf": {
+            "initialValue": {"sceneDepth": scene_depth},
+            "initialVariance": {
+                "pointDepth": -1.0, "attitude": 0.13565029126052572, "biasAcc": 1.5813333765300104,
+                "biasGyr": 97162.79515771076, "cameraAttitude": 0.0010228558965517584,
+                "cameraPosition": 0.023501400846134893, "point": 129.90415638150924, "position": 0.1,
+                "velocity": 8.974852995731e-08,
+            },
+            "measurementNoise": {
+                "feature": 1.9297839969591413, "featureOutlierAbs": 4.852186665580312,
+                "featureOutlierProb": 0.03229809583062128, "featureRetention": 0.18594708334486176,
+            },
+            "processVariance": {
+                "attitude": 6.025875320811407e-05, "biasAcc": 0.0, "biasGyr": 0.0,
+                "cameraAttitude": 5.075382174045239e-06, "cameraPosition": 1.2188313140115635e-05,
+                "point": 0.00029845436136043135, "position": 9.981466095928483e-06,
+                "velocity": 0.025317333863551263,
+            },
+            "settings": {
+                "coordinateChoice": "InvDepth", "fastRiccati": True, "useDiscreteStateMatrix": False,
+                "useDiscreteInnovationLift": False, "useDiscreteVelocityLift": True, "useEquivariantOutput": True,
+                "useFeaturePredictions": False, "useMedianDepth": False, "removeLostLandmarks": True,
+            },
+            "velocityNoise": {
+                "acc": 0.012438843268295521, "accBias": 0.004462289865453429, "gyr": 0.000243153572917808,
+                "gyrBias": 0.00013372703521098622,
+            },
+        },
+        "GIFT": {
+            "equaliseImageHistogram": False, "featureDist": 79.80937096082073, "maxError": 76.21556706799433,
+            "maxFeatures": 40, "maxLevel": 3, "minHarrisQuality": 0.0792713927794865,
+            "featureSearchThreshold": 0.8854861727179565, "trackedFeatureDist": 30.79127938908608, "winSize": 21,
+            "ransacParams": {"inlierThreshold": 0.0023121620935037416, "maxIterations": 34, "minDataPoints": 5,
+                             "minInliers": 30},
+        },
+        "main": {"limitRate": 0.0, "startTime": 0.0, "writeState": True},
+    }
+
+
+def mh03_proxy_config() -> dict:
+    """``configs/config_mh03_proxy.yaml`` as a dict, for machines without
+    PyYAML (a test keeps the two equal)."""
+    return _euroc_proxy_config(9.0)
+
+
+def v101_proxy_config() -> dict:
+    """``configs/config_v101_proxy.yaml`` as a dict, for machines without
+    PyYAML (a test keeps the two equal)."""
+    return _euroc_proxy_config(3.36)
+
+
 def bench_config(base: dict | None = None) -> dict:
     """The benchmark's configuration: the template (or ``base``) with the
     algorithm switches of the shipped EuRoC config (fast Riccati, InvDepth,
@@ -258,3 +315,24 @@ def _ransac_kwargs(gift: dict) -> dict:
         "ransac_hypotheses": max(int(rp.get("maxIterations", 64)), 16),
         "ransac_min_inliers": int(rp.get("minInliers", 8)),
     }
+
+
+def sim_params_from_config(cfg: dict) -> dict:
+    """The ``sim:`` section as ``prepare_sim_inputs`` keyword arguments
+    (trajectory, duration, rates, features, points, walls, seed and the
+    noise switches, in the reference's key names)."""
+    sim = cfg.get("sim", {}) or {}
+    mapping = {
+        "trajectory": ("kind", str),
+        "duration": ("end_time", float),
+        "imuFreq": ("imu_freq", float),
+        "imageFreq": ("frame_freq", float),
+        "maxFeatures": ("max_features", int),
+        "numPoints": ("num_points", int),
+        "numWalls": ("num_walls", int),
+        "randomSeed": ("seed", int),
+        "initialNoise": ("initial_noise", bool),
+        "inputNoise": ("input_noise", bool),
+        "outputNoise": ("output_noise", bool),
+    }
+    return {name: cast(sim[key]) for key, (name, cast) in mapping.items() if key in sim}

@@ -1,5 +1,5 @@
 """CSV output writer with the reference VIOWriter's files and headers
-(counterpart of the state/feature/timing part of ``eqvio_tpu/io/writer.py``;
+(counterpart of ``eqvio_tpu/io/writer.py`` without its streaming mode;
 numpy only).  Lines are buffered in memory and written on :meth:`flush`.
 """
 
@@ -41,7 +41,9 @@ def _fmt(x) -> str:
 
 class VIOWriter:
     """Buffered CSV writer: IMUState.csv, camera.csv, bias.csv, points.csv,
-    features.csv and timing.csv."""
+    features.csv and timing.csv, and the simulation's trueState.csv,
+    landmarkError.csv, poseConsistency.csv, biasConsistency.csv and
+    nees.csv."""
 
     def __init__(self, output_dir: str):
         self.output_dir = output_dir
@@ -89,7 +91,47 @@ class VIOWriter:
         buf = self._file("timing.csv", "time, " + ", ".join(timings.keys()) + "\n")
         buf.append(f"{float(stamp):.20g}, " + ", ".join(_fmt(v) for v in timings.values()) + "\n")
 
+    def _row(self, name: str, header: str, stamp, values) -> None:
+        self._file(name, header).append(f"{float(stamp):.20g}, " + ", ".join(map(_fmt, values)) + "\n")
+
+    # --- the simulation's consistency outputs ---
+
+    def write_landmark_error(self, stamp, errors, mask):
+        self._row("landmarkError.csv", "time, lm_err_1, lm_err_2, ...\n", stamp,
+                  [e for e, m in zip(np.asarray(errors), np.asarray(mask)) if m])
+
+    def write_true_state(self, stamp, pose_R, pose_x, velocity, bias):
+        self._row("trueState.csv",
+                  "time, pose_tx, pose_ty, pose_tz, pose_qw, pose_qx, pose_qy, pose_qz,"
+                  " vel_x, vel_y, vel_z, bias_gyr_x, bias_gyr_y, bias_gyr_z,"
+                  " bias_acc_x, bias_acc_y, bias_acc_z\n",
+                  stamp, [*pose_x, *rotation_to_quaternion(pose_R), *velocity, *bias])
+
+    def write_pose_consistency(self, stamp, eps, sigma_diag):
+        """Pose error coordinates and marginal standard deviations."""
+        self._row("poseConsistency.csv",
+                  "time, eps_rx, eps_ry, eps_rz, eps_px, eps_py, eps_pz,"
+                  " sig_rx, sig_ry, sig_rz, sig_px, sig_py, sig_pz\n",
+                  stamp, [*eps, *np.sqrt(np.asarray(sigma_diag))])
+
+    def write_bias_consistency(self, stamp, eps, sigma_diag):
+        """Bias error coordinates and marginal standard deviations."""
+        self._row("biasConsistency.csv",
+                  "time, eps_gyr_x, eps_gyr_y, eps_gyr_z, eps_acc_x, eps_acc_y, eps_acc_z,"
+                  " sig_gyr_x, sig_gyr_y, sig_gyr_z, sig_acc_x, sig_acc_y, sig_acc_z\n",
+                  stamp, [*eps, *np.sqrt(np.asarray(sigma_diag))])
+
+    def write_nees(self, stamp, nees, dof, pose_nees=0.0, attitude_nees=0.0):
+        self._row("nees.csv", "time, NEES, DoF, PoseNEES, AttitudeNEES\n", stamp,
+                  [nees, dof, pose_nees, attitude_nees])
+
     def flush(self):
         for name, lines in self._buffers.items():
             with open(os.path.join(self.output_dir, name), "w") as f:
                 f.writelines(lines)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.flush()

@@ -40,18 +40,24 @@ class KltCase(NamedTuple):
     max_error: float
 
 
-def klt_case(device, reader=None, frames: tuple[int, int] = (100, 101), config: dict | None = None) -> KltCase:
+def klt_case(device, reader=None, frames: tuple[int, int] = (100, 101), config: dict | None = None,
+             spacing: str = "detect") -> KltCase:
     """The frame pair of the benchmark scene (or ``reader``) on ``device``,
     as the tracker of ``config`` (the benchmark's by default) sees it:
     equalised if the config says so, and its ``maxFeatures`` corners
-    detected with its spacing and quality."""
+    detected with its quality, spaced as one detection places them
+    (``spacing="detect"``: ``featureDist``) or as the tracker keeps its
+    live tracks apart (``"tracked"``: ``trackedFeatureDist``; a config whose
+    detection spacing admits fewer corners per frame fills its slots over
+    several frames, up to this spacing)."""
     reader = bench_scene(8.0) if reader is None else reader
     tcfg = tracker_config_from_config(bench_config() if config is None else config)
     levels, win = tcfg.max_level + 1, tcfg.win_size
     f0, f1 = (torch.tensor(reader.load_image_u8(i), device=device).float() * (1.0 / 255.0) for i in frames)
     if tcfg.equalize_histogram:
         f0, f1 = equalize_histogram(f0), equalize_histogram(f1)
-    corners, valid = detect_features(f0, tcfg.max_features, min_dist=tcfg.feature_dist,
+    min_dist = {"detect": tcfg.feature_dist, "tracked": int(tcfg.tracked_feature_dist)}[spacing]
+    corners, valid = detect_features(f0, tcfg.max_features, min_dist=min_dist,
                                      quality=tcfg.min_harris_quality, border=win)
     if int(valid.sum()) < tcfg.max_features:
         raise RuntimeError(f"only {int(valid.sum())} corners detected on frame {frames[0]}")

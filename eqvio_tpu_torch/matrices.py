@@ -51,7 +51,7 @@ def input_matrix_B_euclid(X: VIOGroup, xi0: VIOState) -> torch.Tensor:
     xi_hat = state_action(X, xi0)
     R_A = X.A.R
 
-    B = torch.zeros(D, 12, dtype=dtype, device=device)
+    B = R_A.new_zeros(D, 12)  # from a state tensor, so a vmap over lanes batches it
     B[0:6, 6:12] = torch.eye(6, dtype=dtype, device=device)
     B[6:9, 0:3] = R_A
     B[9:12, 0:3] = skew(X.A.x) @ R_A
@@ -104,19 +104,18 @@ def _assemble_A(xi0: VIOState, B_full, ad_term, lm_vel, lm_cam, lm_diag):
     D = SENSOR_DIM + 3 * N
     dtype, device = xi0.landmarks.dtype, xi0.landmarks.device
 
-    A = torch.zeros(D, D, dtype=dtype, device=device)
+    A = B_full.new_zeros(D, D)
     A[:, 0:6] = -B_full[:, 0:6]
     A[9:12, 12:15] = torch.eye(3, dtype=dtype, device=device)
     A[12:15, 6:9] = -GRAVITY * skew(xi0.sensor.gravity_dir())
     A[15:21, 15:21] = ad_term
 
-    lm_rows = torch.zeros(N, 3, D, dtype=dtype, device=device)
+    lm_rows = lm_vel.new_zeros(N, 3, D)
     lm_rows[:, :, 0:6] = A[SENSOR_DIM:, 0:6].reshape(N, 3, 6)
     lm_rows[:, :, 12:15] = lm_vel
     lm_rows[:, :, 15:21] = lm_cam
-    diag = torch.zeros(N, 3, N, 3, dtype=dtype, device=device)
-    idx = torch.arange(N, device=device)
-    diag[idx, :, idx, :] = lm_diag
+    same_slot = torch.eye(N, dtype=torch.bool, device=device)
+    diag = torch.where(same_slot[:, None, :, None], lm_diag[:, :, None, :], 0.0)  # block diagonal
     lm_rows[:, :, SENSOR_DIM:] = diag.reshape(N, 3, 3 * N)
     lm_rows = lm_rows * _mask_f(xi0)[:, None, None]
     A[SENSOR_DIM:, :] = lm_rows.reshape(3 * N, D)
@@ -145,7 +144,7 @@ def output_matrix_Ci_star_euclid(q0, Q: SOT3, camera, y_pixels) -> torch.Tensor:
     q_hat = mv(Qinv_R, q0) / Q.a[..., None]
     y_hat = q_hat / torch.clamp(torch.linalg.norm(q_hat, dim=-1, keepdim=True), min=1e-12)
     y_tru = camera.undistort(y_pixels)
-    AdQinv = torch.zeros(*Q.R.shape[:-2], 4, 4, dtype=Q.R.dtype, device=Q.R.device)
+    AdQinv = Q.R.new_zeros(*Q.R.shape[:-2], 4, 4)
     AdQinv[..., 0:3, 0:3] = Qinv_R
     AdQinv[..., 3, 3].fill_(1.0)
     return 0.5 * (_DRho(y_tru, camera) + _DRho(y_hat, camera)) @ AdQinv @ m2g

@@ -1,0 +1,39 @@
+"""A batch of filter instances as one program (counterpart of
+``eqvio_tpu/parallel/batch.py``, without the device mesh): every state and
+input carries a leading lane axis and the one-sequence step runs under
+``torch.func.vmap``, so the work per frame is one batched launch per
+operation whatever the number of lanes.
+
+API parity with the JAX module: nothing in the port drives these yet (the
+simulation runner vmaps its own frame step, which also tracks slots and
+writes outputs).  Their caller in the JAX package is the multi-host
+``dist_worker``, which comes with the mesh (``ROADMAP.md`` queue 1, item 10).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch.utils._pytree import tree_map
+
+from .. import filter as F
+
+
+def make_batched_states(settings: F.Settings, batch: int, capacity: int, dtype=torch.float32,
+                        device="cpu") -> F.EqFState:
+    """``batch`` freshly initialised filter states (leading axis = lane)."""
+    one = F.init_state(settings, capacity, dtype, device)
+    return tree_map(lambda a: a.expand(batch, *a.shape).clone(), one)
+
+
+def batch_sim_step(settings: F.Settings, camera, suite=None):
+    """The vmapped frame step ``step(states, imu_windows, dts, pixels, vis,
+    ids) -> states`` (propagate over the IMU window, then the vision
+    update), every input with a leading lane axis."""
+    if suite is None:
+        suite = settings.suite
+
+    def one_step(state, imu_win, dts, pixels, vis, ids):
+        state = F.propagate_window(state, imu_win, dts, settings, suite)
+        return F.process_vision(state, pixels, vis, ids, camera, settings, suite)
+
+    return torch.func.vmap(one_step)

@@ -1,12 +1,13 @@
-"""Synthetic trajectories and world points (counterpart of the scene part of
-``eqvio_tpu/sim.py``): the ``wave``, ``room`` and ``racing`` trajectories,
-wall points, pose interpolation, IMU by pose differentiation and the exact
-true state.
+"""Synthetic VIO simulator (counterpart of ``eqvio_tpu/sim.py``): named
+trajectories, wall points, pose interpolation, IMU by pose differentiation,
+the exact true state, per-frame feature selection and the slot tracker.
 
-Scene generation is set-up, not the hot path: it runs in float64 on the
-device it is given (the CPU by default) and is batched over query times.
-The other trajectory kinds (``line``, ``sine``, ``square``, ``mh``), the slot
-simulator and NEES wait for the simulation slice (``ROADMAP.md`` queue 1).
+Scene generation is set-up, not the hot path: it runs on the device it is
+given (the CPU by default) and is batched over query times, where the JAX
+package vmaps a per-time function.  The slot tracker is the per-frame part:
+its steps are written for one sequence, read no host value and write out of
+bounds nowhere, so the simulation runner captures them in a CUDA graph and
+vmaps them over a batch of sequences.
 """
 
 from __future__ import annotations
@@ -18,7 +19,8 @@ import numpy as np
 import torch
 
 from .lie import SE3, mv, se3_exp, se3_inv, se3_log, se3_mul, so3_exp, so3_log
-from .states import GRAVITY
+from .runtime import const
+from .states import GRAVITY, IMU, DUMMY_POINT, VIOSensorState, VIOState
 
 
 def _rot_z(ang):
@@ -50,21 +52,40 @@ def _body_attitude(yaw, pitch, roll):
     return torch.einsum("tij,tjk,tkl->til", Rz, Ry, Rx)
 
 
+def _stationary_start(t):
+    """The hold-then-ramp time parameter of the EuRoC-like kinds: 3 s at rest."""
+    u = torch.clamp(t - 3.0, min=0.0)
+    return u - 2.0 * (1.0 - torch.exp(-u / 2.0))
+
+
 def trajectory_poses(kind: str, end_time: float, frequency: float, dtype=torch.float64, device="cpu"):
-    """Stamped poses ``[T]`` of a named trajectory: ``(t, SE3)``."""
+    """Stamped poses ``[T]`` of a named trajectory: ``(t, SE3)``.
+
+    Kinds: ``line``, ``wave``, ``sine``, ``square``, ``room`` (alias
+    ``v101``: EuRoC V1_01-like), ``mh`` (alias ``machine_hall``: EuRoC
+    MH_03-like) and ``racing`` (UZH-FPV-like)."""
     num = int(np.floor(end_time * frequency))
     t = torch.arange(num, dtype=dtype, device=device) / frequency
-    if kind == "wave":
+    two_pi = 2 * math.pi
+    s = torch.sin
+    if kind == "line":
+        coord = 5.0 * (2.0 * (t + s(t * 2 * math.pi / 10.0)) / end_time - 1.0)
+        zero = torch.zeros_like(t)
+        x = torch.stack([zero, coord, zero], dim=-1)
+        R = torch.eye(3, dtype=dtype, device=device).expand(num, 3, 3)
+    elif kind == "wave":
         ang = 2 * math.pi * t / 20.0
         R = _rot_z(ang)
-        x = torch.stack([torch.cos(ang), torch.sin(ang), 0.2 * torch.sin(10 * ang)], dim=-1)
-    elif kind == "room":
-        # EuRoC V1_01-like room trajectory with a 3 s stationary start
-        two_pi = 2 * math.pi
-        u = torch.clamp(t - 3.0, min=0.0)
-        tau = u - 2.0 * (1.0 - torch.exp(-u / 2.0))
+        x = torch.stack([torch.cos(ang), s(ang), 0.2 * s(10 * ang)], dim=-1)
+    elif kind == "sine":
+        ang = 2 * math.pi * t / 20.0
+        R = _rot_z(ang)
+        x = torch.stack([torch.cos(ang), s(ang), 0.1 * s(5 * ang)], dim=-1)
+    elif kind in ("room", "v101"):
+        # EuRoC V1_01-like room trajectory with a 3 s stationary start, scaled
+        # so a 144 s run has V1_01's path length (58.56 m)
+        tau = _stationary_start(t)
         scale = 58.56 / 65.14
-        s = torch.sin
         x = scale * torch.stack(
             [
                 1.30 * s(two_pi * tau / 27.0) + 0.33 * s(two_pi * tau / 7.8)
@@ -81,18 +102,37 @@ def trajectory_poses(kind: str, end_time: float, frequency: float, dtype=torch.f
         roll = 0.12 * s(two_pi * tau / 4.3) + 0.05 * s(two_pi * tau / 1.4)
         pitch = 0.12 * torch.cos(two_pi * tau / 5.7) + 0.05 * torch.cos(two_pi * tau / 1.6 + 0.5)
         R = _body_attitude(yaw, pitch, roll)
+    elif kind in ("mh", "machine_hall"):
+        # EuRoC MH_03-like machine-hall sweep with a 3 s stationary start,
+        # scaled so a 132 s run has MH_03's path length (127.355 m)
+        tau = _stationary_start(t)
+        scale = 127.35526466112435 / 127.650055
+        x = scale * torch.stack(
+            [
+                4.5 * s(two_pi * tau / 40.0) + 1.3 * s(two_pi * tau / 11.0)
+                + 0.18 * s(two_pi * tau / 2.1),
+                2.3 * s(two_pi * tau / 31.0 + 0.7) + 1.0 * torch.cos(two_pi * tau / 13.0)
+                + 0.18 * s(two_pi * tau / 2.4 + 0.8),
+                1.1 * s(two_pi * tau / 17.0) + 0.4 * s(two_pi * tau / 6.3)
+                + 0.10 * s(two_pi * tau / 2.0 + 1.2),
+            ],
+            dim=-1,
+        )
+        yaw = (1.4 * s(two_pi * tau / 37.0) + 0.5 * s(two_pi * tau / 9.0)
+               + 0.08 * s(two_pi * tau / 2.2))
+        roll = 0.18 * s(two_pi * tau / 5.1) + 0.07 * s(two_pi * tau / 1.7)
+        pitch = 0.18 * torch.cos(two_pi * tau / 6.4) + 0.07 * torch.cos(two_pi * tau / 2.0 + 0.5)
+        R = _body_attitude(yaw, pitch, roll)
     elif kind == "racing":
         # drone-racing figure-eight in an ~18x9x2 m hall with a 3 s stationary
         # start, yaw along the track tangent, banking from yaw rate x speed
-        two_pi = 2 * math.pi
-        u = torch.clamp(t - 3.0, min=0.0)
-        tau = u - 2.0 * (1.0 - torch.exp(-u / 2.0))
+        tau = _stationary_start(t)
         A, B = 9.0, 4.5
         x = torch.stack(
             [
-                A * torch.sin(two_pi * tau / 14.0),
-                B * torch.sin(2 * two_pi * tau / 14.0),
-                1.0 + 0.8 * torch.sin(two_pi * tau / 6.5),
+                A * s(two_pi * tau / 14.0),
+                B * s(2 * two_pi * tau / 14.0),
+                1.0 + 0.8 * s(two_pi * tau / 6.5),
             ],
             dim=-1,
         )
@@ -104,10 +144,18 @@ def trajectory_poses(kind: str, end_time: float, frequency: float, dtype=torch.f
         roll = torch.clamp(torch.atan(_gradient(yaw, dt_s) * speed / 9.81), -0.6, 0.6)
         pitch = torch.clamp(-0.05 * _gradient(speed, dt_s), -0.3, 0.3)
         R = _body_attitude(yaw, pitch, roll)
+    elif kind == "square":
+        square_time = 20.0
+        R = _rot_z(-2 * math.pi * t / square_time)
+        s01 = (t / square_time * 4) - torch.floor(t / square_time * 4)
+        d = -1.0 + 2.0 * s(s01 / 2 * math.pi) ** 2
+        side = torch.floor(t / square_time * 4).to(torch.int32) % 4
+        one = torch.ones_like(d)
+        px = torch.where(side == 0, d, torch.where(side == 1, one, torch.where(side == 2, -d, -one)))
+        py = torch.where(side == 0, one, torch.where(side == 1, -d, torch.where(side == 2, -one, d)))
+        x = torch.stack([px, py, torch.zeros_like(d)], dim=-1)
     else:
-        raise NotImplementedError(
-            f"trajectory kind {kind!r} is not ported yet (ROADMAP.md queue 1, simulation path)"
-        )
+        raise ValueError(f"unknown trajectory kind {kind!r}")
     return t, SE3(R, x)
 
 
@@ -141,20 +189,31 @@ def generate_world_points(poses_x: np.ndarray, num: int, distance: float, num_wa
 class Simulator(NamedTuple):
     times: torch.Tensor  # [T]
     poses: SE3  # [T]
-    world: torch.Tensor  # [P, 3] inertial points
+    world: torch.Tensor  # [P, 3] inertial points (ids 0..P-1)
     camera_offset: SE3
 
     @staticmethod
-    def create(kind="wave", end_time=60.0, pose_frequency=100.0, num_points=1000,
-               wall_distance=2.0, num_walls=1, seed=0, dtype=torch.float64, device="cpu"):
+    def create(kind="wave", end_time=60.0, pose_frequency=100.0, num_points=1000, wall_distance=2.0,
+               num_walls=1, seed=0, camera_offset: SE3 | None = None, dtype=torch.float64, device="cpu"):
         t, poses = trajectory_poses(kind, end_time, pose_frequency, dtype, device)
         world = generate_world_points(poses.x.cpu().numpy(), num_points, wall_distance, num_walls, seed)
-        # z-forward camera mounted on the body x-axis
-        cam_R = torch.tensor(
-            [[0.0, 0.0, 1.0], [-1.0, 0.0, 0.0], [0.0, -1.0, 0.0]], dtype=dtype, device=device
-        ).T
-        camera_offset = SE3(cam_R, torch.zeros(3, dtype=dtype, device=device))
+        if camera_offset is None:
+            # z-forward camera mounted on the body x-axis
+            cam_R = torch.tensor(
+                [[0.0, 0.0, 1.0], [-1.0, 0.0, 0.0], [0.0, -1.0, 0.0]], dtype=dtype, device=device
+            ).T
+            camera_offset = SE3(cam_R, torch.zeros(3, dtype=dtype, device=device))
         return Simulator(t, poses, torch.as_tensor(world, dtype=dtype, device=device), camera_offset)
+
+    @staticmethod
+    def from_poses(times, poses: SE3, camera_offset: SE3, num_points: int = 1000, wall_distance: float = 2.0,
+                   num_walls: int = 4, seed: int = 0, dtype=torch.float64, device="cpu") -> "Simulator":
+        """A simulator around an arbitrary stamped trajectory (such as a
+        dataset's ground truth)."""
+        f = lambda a: torch.as_tensor(a, dtype=dtype, device=device).contiguous()  # noqa: E731
+        x = f(poses.x)
+        world = generate_world_points(x.cpu().numpy(), num_points, wall_distance, num_walls, seed)
+        return Simulator(f(times), SE3(f(poses.R), x), f(world), camera_offset)
 
     def _index(self, t: torch.Tensor) -> torch.Tensor:
         """Index of the first pose stamped >= t, clamped to [2, T-2]."""
@@ -171,16 +230,19 @@ class Simulator(NamedTuple):
         return se3_mul(p0, se3_exp(vel * (t - t0)[..., None]))
 
     def _inertial_states(self, t: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
-        """``[..., 3, 3]`` inertial (position | velocity | acceleration) from a
-        cubic least-squares fit over the 4 bracketing poses."""
         taus = torch.stack([self.times[i - 2], self.times[i - 1], self.times[i], self.times[i + 1]],
                            dim=-1) - t[..., None]
         Xp = torch.stack([self.poses.x[i - 2], self.poses.x[i - 1], self.poses.x[i],
                           self.poses.x[i + 1]], dim=-1)  # [..., 3, 4]
         TT = torch.stack([torch.ones_like(taus), taus, taus**2 / 2.0, taus**3 / 6.0], dim=-2)
         TTt = TT.transpose(-1, -2)
-        A = Xp @ TTt @ torch.linalg.inv(TT @ TTt)
+        A = Xp @ TTt @ torch.linalg.inv_ex(TT @ TTt)[0]
         return A[..., 0:3]
+
+    def inertial_states(self, t: torch.Tensor) -> torch.Tensor:
+        """``[..., 3, 3]`` inertial (position | velocity | acceleration) from a
+        cubic least-squares fit over the 4 bracketing poses."""
+        return self._inertial_states(t, self._index(t))
 
     def _attitude(self, t: torch.Tensor, i: torch.Tensor):
         R0 = self.poses.R[i - 1]
@@ -188,14 +250,16 @@ class Simulator(NamedTuple):
         gyr = so3_log(R0.transpose(-1, -2) @ self.poses.R[i]) / (t1 - t0)[..., None]
         return gyr, R0 @ so3_exp((t - t0)[..., None] * gyr)
 
-    def get_imu_batch(self, ts: torch.Tensor):
-        """``(gyr [T, 3], acc [T, 3])`` at stamps ``ts`` by pose differentiation."""
-        i = self._index(ts)
-        gyr, att = self._attitude(ts, i)
-        accel_inertial = self._inertial_states(ts, i)[..., 2]
-        grav = torch.tensor([0.0, 0.0, -GRAVITY], dtype=ts.dtype, device=ts.device)
+    def get_imu(self, t: torch.Tensor) -> IMU:
+        """IMU at stamps ``t`` (any shape) by pose differentiation."""
+        i = self._index(t)
+        gyr, att = self._attitude(t, i)
+        accel_inertial = self._inertial_states(t, i)[..., 2]
+        grav = torch.tensor([0.0, 0.0, -GRAVITY], dtype=t.dtype, device=t.device)
         acc = mv(att.transpose(-1, -2), accel_inertial - grav)
-        return gyr, acc
+        return IMU.create(t, gyr, acc, dtype=t.dtype, device=t.device)
+
+    get_imu_batch = get_imu
 
     def true_pose_velocity(self, ts: torch.Tensor):
         """True ``(pose SE3, body velocity)`` at stamps ``ts``."""
@@ -203,3 +267,141 @@ class Simulator(NamedTuple):
         _, att = self._attitude(ts, i)
         states = self._inertial_states(ts, i)
         return SE3(att, states[..., 0]), mv(att.transpose(-1, -2), states[..., 1])
+
+    def _camera_points(self, pose: SE3) -> torch.Tensor:
+        """Every world point in the camera frame of ``pose`` ``[...]``: ``[..., P, 3]``."""
+        cam_pose_inv = se3_inv(se3_mul(pose, self.camera_offset))
+        return torch.einsum("...ij,pj->...pi", cam_pose_inv.R, self.world) + cam_pose_inv.x[..., None, :]
+
+    def full_state(self, t: torch.Tensor, capacity: int = 0) -> VIOState:
+        """Exact true state at stamps ``t`` (any shape); the landmarks hold
+        every world point in the camera frame (ids 0..P-1)."""
+        pose, velocity = self.true_pose_velocity(t)
+        P = self.world.shape[0]
+        batch = t.shape
+        sensor = VIOSensorState(
+            bias=torch.zeros(*batch, 6, dtype=self.world.dtype, device=self.world.device),
+            pose=pose,
+            velocity=velocity,
+            camera_offset=SE3(*(a.expand(*batch, *a.shape) for a in self.camera_offset)),
+        )
+        return VIOState(
+            sensor=sensor,
+            landmarks=self._camera_points(pose),
+            ids=torch.arange(P, device=self.world.device).expand(*batch, P),
+            mask=torch.ones(*batch, P, dtype=torch.bool, device=self.world.device),
+        )
+
+    def get_vision(self, t: torch.Tensor, camera, max_features: int):
+        """Visible world points at stamps ``t``: ``(camera-frame points [..., P, 3],
+        selected [..., P])``; selection keeps the ``max_features`` lowest-id
+        visible points."""
+        cam_pts = self._camera_points(self.interpolate_pose(t))
+        visible = camera.is_in_domain(cam_pts)
+        rank = torch.cumsum(visible.to(torch.int64), dim=-1) - 1
+        return cam_pts, visible & (rank < max_features)
+
+    def get_vision_compact(self, t: torch.Tensor, camera, max_features: int):
+        """``(sel_ids [..., F], sel_pts [..., F, 3])``: the selected world ids in
+        ascending order and their camera-frame points, -1 / dummy padded."""
+        cam_pts, selected = self.get_vision(t, camera, max_features)
+        P = cam_pts.shape[-2]
+        ids = torch.arange(P, device=cam_pts.device)
+        first = torch.sort(torch.where(selected, ids, P), dim=-1).values[..., :max_features]
+        valid = first < P
+        safe = torch.clamp(first, 0, P - 1)
+        pts = torch.gather(cam_pts, -2, safe[..., None].expand(*safe.shape, 3))
+        dummy = const(DUMMY_POINT, cam_pts.dtype, cam_pts.device)
+        return torch.where(valid, first, -1), torch.where(valid[..., None], pts, dummy)
+
+
+# ---------------------------------------------------------------------------
+# Slot tracker: per-frame selected world ids -> slot-aligned measurements
+# with persistent slot assignment (one sequence; vmapped over a batch)
+# ---------------------------------------------------------------------------
+
+
+class SlotTrackerState(NamedTuple):
+    slot_ids: torch.Tensor  # [N] world-point id per slot, -1 when free
+
+
+def slot_tracker_init(capacity: int, device="cpu") -> SlotTrackerState:
+    return SlotTrackerState(torch.full((capacity,), -1, dtype=torch.int64, device=device))
+
+
+def _set_drop(buf: torch.Tensor, index: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """``buf.at[index].set(values, mode="drop")`` for indices in ``[0, len]``:
+    the writes to ``len`` land in one spare entry that is sliced off."""
+    n = buf.shape[0]
+    ext = torch.cat([buf, buf.new_zeros(1)])
+    return ext.scatter(0, torch.clamp(index, 0, n), values)[:n]
+
+
+def _assign_free(slot_ids, is_new, new_values):
+    """The k-th free slot takes the k-th new entry (``new_values[k]``, in
+    index order of ``is_new``); the rest stay as they are."""
+    N, M = slot_ids.shape[0], is_new.shape[0]
+    free = slot_ids < 0
+    k = torch.arange(N, device=slot_ids.device)
+    free_slots = torch.sort(torch.where(free, k, N)).values
+    new_pos = torch.sort(torch.where(is_new, torch.arange(M, device=slot_ids.device), M)).values
+    n_assign = torch.minimum(free.sum(), is_new.sum())
+    assign = k < n_assign
+    target = torch.where(assign, free_slots, N)
+    value = torch.where(assign, new_values(new_pos[torch.clamp(k, 0, M - 1)]), -1)
+    return _set_drop(slot_ids, target, value)
+
+
+def slot_tracker_step(ts: SlotTrackerState, selected: torch.Tensor) -> SlotTrackerState:
+    """Keep the slots of still-selected ids; give new ids the free slots.
+    ``selected [P]``: per-world-point selection."""
+    P = selected.shape[0]
+    slot_ids = ts.slot_ids
+    still = (slot_ids >= 0) & selected[torch.clamp(slot_ids, 0, P - 1)]
+    slot_ids = torch.where(still, slot_ids, -1)
+    occ = torch.where(slot_ids >= 0, slot_ids, P)
+    has_slot = _set_drop(torch.zeros_like(selected), occ, torch.ones_like(occ, dtype=torch.bool))
+    is_new = selected & ~has_slot
+    return SlotTrackerState(_assign_free(slot_ids, is_new, lambda pos: pos))
+
+
+def slot_tracker_step_compact(ts: SlotTrackerState, sel_ids: torch.Tensor) -> SlotTrackerState:
+    """:func:`slot_tracker_step` on ``sel_ids [F]`` (selected world ids, -1
+    padded): every operation is F- or N-sized."""
+    F_ = sel_ids.shape[0]
+    slot_ids = ts.slot_ids
+    valid = sel_ids >= 0
+    in_sel = (slot_ids[:, None] == sel_ids[None, :]) & valid[None, :]
+    slot_ids = torch.where((slot_ids >= 0) & in_sel.any(dim=1), slot_ids, -1)
+    has_slot = (sel_ids[:, None] == slot_ids[None, :]).any(dim=1) & valid
+    is_new = valid & ~has_slot
+    return SlotTrackerState(_assign_free(slot_ids, is_new, lambda pos: sel_ids[torch.clamp(pos, 0, F_ - 1)]))
+
+
+def first_match(slot_ids: torch.Tensor, sel_ids: torch.Tensor):
+    """``(match [N, F], index of each slot's first match [N])``; a slot with
+    no match gets index 0, as ``jnp.argmax`` of an all-false row."""
+    match = (slot_ids[:, None] == sel_ids[None, :]) & (sel_ids[None, :] >= 0)
+    return match, torch.argmax(match.to(torch.int32), dim=1)
+
+
+def gather_slots_compact(sel_ids: torch.Tensor, sel_pts: torch.Tensor, ts: SlotTrackerState, camera):
+    """Slot-aligned measurements from the compact selection:
+    ``(pixels [N, 2], vis [N], ids [N], true points [N, 3])``."""
+    match, src = first_match(ts.slot_ids, sel_ids)
+    vis = (ts.slot_ids >= 0) & match.any(dim=1)
+    pts = torch.where(vis[:, None], sel_pts[src], const(DUMMY_POINT, sel_pts.dtype, sel_pts.device))
+    pixels = torch.where(vis[:, None], camera.project(pts), 0.0)
+    return pixels, vis, ts.slot_ids, pts
+
+
+def gather_slots(cam_pts: torch.Tensor, ts: SlotTrackerState, camera):
+    """Slot-aligned measurements from camera-frame world points ``[P, 3]``:
+    ``(pixels [N, 2], vis [N], ids [N], true points [N, 3])``."""
+    P = cam_pts.shape[0]
+    ids = ts.slot_ids
+    pts = cam_pts[torch.clamp(ids, 0, P - 1)]
+    vis = ids >= 0
+    pixels = camera.project(pts)
+    pts = torch.where(vis[:, None], pts, const(DUMMY_POINT, cam_pts.dtype, cam_pts.device))
+    return torch.where(vis[:, None], pixels, 0.0), vis, ids, pts

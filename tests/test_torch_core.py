@@ -440,7 +440,8 @@ def test_sim_scene_matches_jax(kind):
                       (st.times, st.poses, st.world, st.camera_offset), TOL, "scene")
     ts = np.arange(0.2, 5.0, 0.137)
     imu_j = sj.get_imu_batch(jnp.asarray(ts))
-    gyr_t, acc_t = st.get_imu_batch(tt(ts))
+    imu_t = st.get_imu_batch(tt(ts))
+    gyr_t, acc_t = imu_t.gyr, imu_t.acc
     # accelerations come from inverting a cubic fit's 4x4 normal matrix over
     # 10 ms stamps (condition ~1e8): 1e-9 instead of 1e-12
     assert_tree_close((imu_j.gyr, imu_j.acc), (gyr_t, acc_t), 1e-9, "imu")

@@ -15,6 +15,7 @@ import torch
 from eqvio_tpu_torch.app import run_opt as R
 from eqvio_tpu_torch.data import DataServer, SyntheticASLReader, racing_proxy, shifted_texture_pair
 from eqvio_tpu_torch.frontend import build_pyramid, tracker
+from eqvio_tpu_torch.graph import WARMUP_STEPS
 from eqvio_tpu_torch.io import bench_config, racing_proxy_config, template_config
 from eqvio_tpu_torch.kernels import klt as K
 from eqvio_tpu_torch.kernels import klt_bench as B
@@ -199,7 +200,7 @@ def test_graph_replay_matches_eager_steps(cuda_device):
     before = K.klt_track_pyramid.launches
     outs = runner.run(imgs, meta)
     assert runner.step.graph is not None and runner.step.pool_bytes >= 0
-    assert K.klt_track_pyramid.launches == before + R.WARMUP_STEPS
+    assert K.klt_track_pyramid.launches == before + WARMUP_STEPS
     for i in range(imgs.shape[0]):
         carry, ref = step(carry, imgs[i], meta[i])
         assert torch.equal(outs[i, 34 + 7 * N:], ref[34 + 7 * N:]), f"frame {i} ids or masks"
@@ -261,3 +262,45 @@ def test_failed_capture_raises(cuda_device, monkeypatch):
     with pytest.raises(RuntimeError):
         runner.run(imgs, meta)
     assert runner.step.graph is None
+
+
+def _sim_runner(device, dtype, **opts):
+    from eqvio_tpu_torch import filter as F
+    from eqvio_tpu_torch import runner as SR
+
+    settings = F.Settings(measurement_noise=0.5, coordinate_choice="invdepth", fast_riccati=True,
+                          use_discrete_innovation_lift=False, use_median_depth=False, initial_scene_depth=2.5)
+    inputs = SR.prepare_sim_inputs(settings, capacity=16, max_features=12, end_time=2.0, num_points=200,
+                                   dtype=dtype)
+    return SR.build_sim_runner(settings, inputs, device=device, **opts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opts", [dict(consistency=True), dict(augment_true_landmarks=False, compute_nees=False)],
+                         ids=["augmented-consistency", "self-init"])
+def test_sim_graph_replay_matches_eager_steps(cuda_device, opts):
+    """The simulation's frame step captured once and replayed per frame
+    equals the same step run eagerly on the card, frame by frame (float64;
+    the same kernels in and outside the graph), and the CPU run within 1e-9 m."""
+    runner = _sim_runner("cuda", torch.float64, **opts)
+    replayed = runner()
+    assert runner.step.graph is not None
+    runner.reset()
+    for _ in range(runner.frames):
+        runner.step._body()  # the uncaptured step on the same static buffers
+    eager = runner.result()
+    for a, b in zip(replayed[:9], eager[:9]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-12, equal_nan=True)
+    cpu = _sim_runner("cpu", torch.float64, **opts)()
+    torch.testing.assert_close(replayed.est_position, cpu.est_position, rtol=0, atol=1e-9)
+
+
+@pytest.mark.cuda
+def test_sim_batch_lanes_match_single_on_card(cuda_device):
+    """Every lane of a captured batch of 8 lanes of one sequence equals the
+    captured single-lane run (float32, 1e-4 m)."""
+    single = _sim_runner("cuda", torch.float32, augment_true_landmarks=False, compute_nees=False)()
+    batch = _sim_runner("cuda", torch.float32, augment_true_landmarks=False, compute_nees=False, batch=8)()
+    assert batch.est_position.shape == (8,) + tuple(single.est_position.shape)
+    for lane in batch.est_position:
+        torch.testing.assert_close(lane, single.est_position, rtol=0, atol=1e-4)

@@ -58,6 +58,7 @@ def test_profile_chunk_traces_one_chunk(tmp_path):
     _, traced = torch_run_opt.run_dataset(reader, bench_config(), profile_dir=str(tmp_path), profile_chunk=1,
                                           **kw)
     assert traced["profile"]["chunk"] == 1 and traced["profile"]["frames"] == 4 and traced["profile"]["s"] > 0
+    assert traced["profile"]["device_ms_per_frame"] > 0  # the traced chunk's own untraced replays
     np.testing.assert_array_equal(traced["positions"], plain["positions"])
     with open(tmp_path / "trace.json") as f:
         names = [e.get("name") for e in json.load(f)["traceEvents"]]

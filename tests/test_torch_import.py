@@ -34,12 +34,31 @@ def _clean_env():
     return env
 
 
+SIM_MODULES = ("eqvio_tpu_torch.sim", "eqvio_tpu_torch.runner", "eqvio_tpu_torch.app.run_sim",
+               "eqvio_tpu_torch.parallel", "eqvio_tpu_torch.parallel.batch", "eqvio_tpu_torch.graph")
+
+
 def test_port_imports_no_jax():
-    res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=_clean_env(),
-                         capture_output=True, text=True, timeout=120)
+    res = subprocess.run([sys.executable, "-c", _IMPORT_ALL + "print(' '.join(names))"], cwd=REPO,
+                         env=_clean_env(), capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
-    n_modules = int(res.stdout.split()[0])
-    assert n_modules >= 25
+    lines = res.stdout.splitlines()
+    n_modules = int(lines[0].split()[0])
+    assert n_modules >= 28
+    assert set(SIM_MODULES) <= set(lines[1].split())  # the simulation slice is walked and imported too
+
+
+def test_runner_loads_no_app_or_front_end():
+    """The simulation runner is a library layer: it takes the captured step
+    from ``graph`` and loads no CLI app, image front end, data server or io."""
+    code = ("import sys, eqvio_tpu_torch.runner\n"
+            "print(' '.join(sorted(m for m in sys.modules if m.startswith('eqvio_tpu_torch.'))))")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_clean_env(), capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    loaded = res.stdout.split()
+    assert "eqvio_tpu_torch.graph" in loaded
+    assert not [m for m in loaded if m.split(".")[1] in ("app", "frontend", "data", "io", "kernels")], loaded
 
 
 def test_klt_wrapper_uses_plain_path_on_cpu():
