@@ -27,9 +27,13 @@ Phases, each printing one line; any failure exits nonzero before the result:
    kernel's device time per launch from ``torch.profiler`` (and from the
    replay of 50 launches captured in one CUDA graph), the wrapper's host
    time per call, the plain version's time, and the bound; and the same at
-   the racing and MH_03 shapes.  The racing scene (60 s, 1800 frames) and
-   the MH_03 scene (132 s, 2,635 frames) are built once, before this
-   phase, and shared with phases 7 and 10.
+   the racing and MH_03 shapes.  (e) The sequence batch's shape: 8 lanes
+   of the benchmark pair, each with its own pixel noise, tracked in one
+   launch of 8 x 30 blocks: within 2e-4 px of the plain version with equal
+   masks, and every lane bitwise equal to its own single-lane launch; its
+   device, host, plain and bound times.  The racing scene (60 s, 1800
+   frames) and the MH_03 scene (132 s, 2,635 frames) are built once, before
+   this phase, and shared with phases 7 and 10.
 4. slice: the eager per-frame ``run_dataset(chunk_size=1)`` on ``cuda``
    (float32) over the benchmark scene cut
    to 8 s (>= 100 frames): finite and healthy, >= 10 landmarks, one KLT
@@ -110,6 +114,25 @@ Phases, each printing one line; any failure exits nonzero before the result:
    fused run exactly the eager warm-ups before its one capture.  Prints
    ms/frame, device ms/frame, the idle share and RMSE.
 
+11. sequence batch: ``bench_batch_full_frame`` (``app/run_opt.py``) on the
+   benchmark scene cut at 30 s (a shorter cut renders other frames), its
+   first 224 frames, 8 lanes with their own pixel noise, chunks of 32,
+   float32: every lane finite, the KLT wrapper counting exactly the eager
+   warm-ups before the capture and the counted step; lanes 0 and 7 over 20
+   frames against their own single-sequence ``ChunkRunner`` runs on the
+   same noised frames (ids equal, positions within 1e-4 m, pixels within
+   1e-3 px), those two runs more than 2e-3 px apart; 16 traced batched
+   frames with one ``klt_pyramid_kernel`` per whole graph launch and device
+   events per batched frame at most 64 above one lane's.  Prints
+   ``full_frame_batch_fps``, per-sequence frames/s and
+   ``full_frame_batch_gflops_per_s``, device ms per batched frame against one
+   lane's, the batched KLT's time in the graph, and the counted operations
+   and bytes per batched frame.
+
+Every fused run also counts one eager frame step's operations and bytes
+(``cost.py``; the summary's ``flops_per_frame``): the KLT wrapper counts that
+step's launch beside the warm-ups before each capture.
+
 Then one JSON line with the kernels' numbers and, last, the result line
 ``{"ok": true, "device": {...}}``.
 """
@@ -165,6 +188,19 @@ MH03_SCALE_TOL = 0.05
 PROFILE_DIR = os.path.join(HERE, "build", "smoke_profile")  # build/ is git-ignored
 RACING_PROFILE_DIR = os.path.join(PROFILE_DIR, "racing")
 MH03_PROFILE_DIR = os.path.join(PROFILE_DIR, "mh03")
+# phase 11: bench.py's full-frame batch cell (bench.py:303-327)
+BATCH_SECONDS = 30.0  # the benchmark scene's cut: a shorter one renders other frames
+BATCH_LANES = 8
+BATCH_FRAMES = 224
+BATCH_CHUNK = 32
+BATCH_REPS = 3
+BATCH_CMP_FRAMES = 20  # frames of lanes 0 and 7 held against their single-sequence runs
+BATCH_CHECK_LANES = (0, 7)
+# the tracker's pixels: the batched KLT launch is bitwise a single lane's, so only a
+# differing gate decision could move them
+BATCH_PX_TOL = 1e-3
+BATCH_WINDOW = 16  # traced batched frames
+BATCH_LAUNCH_SLACK = 64  # device events per batched frame above one lane's, as SIM_LAUNCH_SLACK
 DENSE_PROFILE_DIR = os.path.join(PROFILE_DIR, "dense")
 
 
@@ -351,45 +387,53 @@ def sim_timed(runner):
     return wall * 1e3 / runner.frames, start.elapsed_time(end) / runner.frames, res
 
 
-def sim_window(name, runner, trace_dir, dev) -> dict:
-    """``SIM_WINDOW`` frames of a simulation runner from frame
-    ``SIM_WINDOW_START``: their untraced device time (CUDA events, best of
-    two replays from one snapshot of the carry), then the same frames from
-    the same snapshot under a trace.  The trace must show one graph launch
-    per frame; a launch whose trace holds the most device events is whole.
-    Returns the device events per whole launch, the idle share against the
-    untraced device time, the largest kernels and a note."""
+def replay_window(name, replay, snapshot, restore, trace_dir, dev, n) -> dict:
+    """``n`` frames of a captured step: their untraced device time (CUDA
+    events, best of two replays from one snapshot of the carry), then the
+    same frames from the same snapshot under a trace.  The trace must show
+    one graph launch per frame; a launch whose trace holds the most device
+    events is whole.  Returns the device events per whole launch, the KLT
+    launches and durations (us) per graph launch, the idle share against
+    the untraced device time, the largest kernels and a note."""
     import torch
 
     from eqvio_tpu_torch.app import run_opt as R
 
-    n = SIM_WINDOW
-    runner.reset()
-    runner.replay(SIM_WINDOW_START)
-    snap = runner.step.snapshot()
-    secs = R._best_of(R._device_timer(dev), lambda: runner.replay(n), lambda: runner.step.restore(snap))
+    snap = snapshot()
+    secs = R._best_of(R._device_timer(dev), replay, lambda: restore(snap))
     torch.cuda.synchronize()
     with R._profiling(trace_dir, sync=dev):
-        runner.replay(n)
+        replay()
     calls, events, replays, _ = trace_counts(os.path.join(trace_dir, "trace.json"))
-    per = {c: 0 for c in replays}
-    for _, _, _, c in events:
-        if c in per:
-            per[c] += 1
+    per_replay, klt = klt_in_graph_launches(events, replays)
     if calls.get("cudaGraphLaunch") != n or len(replays) != n:
         fail(f"{name}: the trace shows {calls.get('cudaGraphLaunch')} graph launches for {n} frames ({calls})")
-    full = max(per.values())
+    full = max(e for e, _ in per_replay)
     busy = busy_us(events) / 1e3 / n
     untraced = secs * 1e3 / n
     return {
         "events_per_launch": full,
+        "klt_per_launch": [k for _, k in per_replay],
+        "whole": [e == full for e, _ in per_replay],
+        "klt_us": klt,
         "device_ms_per_frame": untraced,
         "largest": largest_kernels(events, n, 6),
-        "note": (f"traced frames {SIM_WINDOW_START}-{SIM_WINDOW_START + n - 1}: one graph launch per frame, "
-                 f"{full} device events per whole launch ({sum(v == full for v in per.values())} of {n} whole), "
-                 f"runtime calls per frame {sum(calls.values()) / n:.2f}, device busy {busy:.3f} ms/frame, idle "
-                 f"share {1.0 - busy / untraced:.3f} against the same frames' untraced {untraced:.3f} ms/frame"),
+        "note": (f"one graph launch per frame, {full} device events per whole launch "
+                 f"({sum(e == full for e, _ in per_replay)} of {n} whole), runtime calls per frame "
+                 f"{sum(calls.values()) / n:.2f}, device busy {busy:.3f} ms/frame, idle share "
+                 f"{1.0 - busy / untraced:.3f} against the same frames' untraced {untraced:.3f} ms/frame"),
     }
+
+
+def sim_window(name, runner, trace_dir, dev) -> dict:
+    """``SIM_WINDOW`` frames of a simulation runner from frame
+    ``SIM_WINDOW_START`` through :func:`replay_window`."""
+    runner.reset()
+    runner.replay(SIM_WINDOW_START)
+    win = replay_window(name, lambda: runner.replay(SIM_WINDOW), runner.step.snapshot, runner.step.restore,
+                        trace_dir, dev, SIM_WINDOW)
+    win["note"] = f"traced frames {SIM_WINDOW_START}-{SIM_WINDOW_START + SIM_WINDOW - 1}: {win['note']}"
+    return win
 
 
 def phase_sim(dev, card) -> None:
@@ -507,7 +551,7 @@ def phase_sim(dev, card) -> None:
 
 def case_times(K, B, case) -> dict:
     """The KLT kernel at a :class:`klt_bench.KltCase`'s shape (its detected
-    corners, guesses = positions): device ms per launch from the profiler
+    corners, guesses = positions; lanes too): device ms per launch from the profiler
     (the replay of 50 launches in one CUDA graph where the profiler records
     none), the plain version's ms, and the bound."""
     run = lambda: K.klt_track_pyramid(case.pyr0, case.pyr1, case.main, case.main, case.win, case.iters)  # noqa: E731
@@ -515,11 +559,13 @@ def case_times(K, B, case) -> dict:
     prof = B.profiler_ms(run, "klt_pyramid_kernel")
     plain = B.cuda_ms(lambda: K.klt_track_pyramid_plain(case.pyr0, case.pyr1, case.main, case.main, case.win,
                                                         case.iters))
-    shapes = [tuple(p.shape) for p in case.pyr0]
-    bound, bound_by = K.bound_ms(len(case.main), shapes, case.win, case.iters)
+    shapes = [tuple(p.shape[-2:]) for p in case.pyr0]
+    lanes = case.main.shape[0] if case.main.dim() == 3 else 1
+    n = case.main.shape[-2]
+    bound, bound_by = K.bound_ms(n, shapes, case.win, case.iters, lanes)
+    shape = f"{n} features x {len(shapes)} levels at {shapes[0][1]}x{shapes[0][0]}"
     return {"ms": prof if prof is not None else graph, "profiler_ms": prof, "graph_ms": graph, "plain_ms": plain,
-            "bound_ms": bound, "bound_by": bound_by,
-            "shape": f"{len(case.main)} features x {len(shapes)} levels at {shapes[0][1]}x{shapes[0][0]}"}
+            "bound_ms": bound, "bound_by": bound_by, "shape": shape if lanes == 1 else f"{lanes} lanes x {shape}"}
 
 
 def phase_mh03(mh03, cfg_mh03, build_s, card) -> dict:
@@ -530,7 +576,7 @@ def phase_mh03(mh03, cfg_mh03, build_s, card) -> dict:
     import torch
 
     from eqvio_tpu_torch import runner as SR
-    from eqvio_tpu_torch.app.run_opt import run_dataset
+    from eqvio_tpu_torch.app.run_opt import COST_STEPS, run_dataset
     from eqvio_tpu_torch.graph import WARMUP_STEPS
     from eqvio_tpu_torch.kernels import klt as K
 
@@ -550,9 +596,9 @@ def phase_mh03(mh03, cfg_mh03, build_s, card) -> dict:
     warmup_m = K.klt_track_pyramid.launches
     _, cpu_m = run_dataset(mh03, cfg_mh03, device="cpu", chunk_size=1, limit_frames=n)
     check_run("mh03", state_m, fused_m, frames=len(mh03.images.stamps))
-    if warmup_m != WARMUP_STEPS:
+    if warmup_m != WARMUP_STEPS + COST_STEPS:
         fail(f"mh03: the KLT wrapper counted {warmup_m} eager launches in the fused run, not the {WARMUP_STEPS} "
-             f"warm-ups before its capture")
+             f"warm-ups before its capture and the {COST_STEPS} counted step")
     gt_m = mh03.groundtruth
     gt_pos_m = np.stack([np.interp(fused_m["stamps"], gt_m.stamps, gt_m.position[:, i]) for i in range(3)], -1)
     rmse_m, scale_m = SR.ate_rmse(fused_m["positions"], gt_pos_m)
@@ -590,6 +636,126 @@ def phase_mh03(mh03, cfg_mh03, build_s, card) -> dict:
           f"{largest_kernels(events_m, CHUNK, 8)} ({card})", flush=True)
     return {"launches": launches_m, "chunk": len(klt_m), "warmup": warmup_m,
             "graph_replay_ms": sum(klt_m) / len(klt_m) / 1e3}
+
+
+def phase_batch(card) -> dict:
+    """Phase 11: the tracker-inclusive sequence batch on the benchmark scene
+    (the JAX package's ``bench_batch_full_frame`` cell): the throughput run,
+    lanes 0 and 7 against their own single-sequence runs, and a traced
+    window of batched frames against one lane's.  Returns the batched KLT's
+    numbers for the kernels line."""
+    import numpy as np
+    import torch
+
+    from eqvio_tpu_torch.app import run_opt as R
+    from eqvio_tpu_torch.data import bench_scene, noised_lanes
+    from eqvio_tpu_torch.graph import WARMUP_STEPS, broadcast_lanes
+    from eqvio_tpu_torch.io import bench_config
+    from eqvio_tpu_torch.kernels import klt as K
+
+    dev = torch.device("cuda")
+    f32 = torch.float32
+    t0 = time.perf_counter()
+    reader = bench_scene(BATCH_SECONDS)
+    cfg = bench_config()
+    build_s = time.perf_counter() - t0
+
+    # the main path: the throughput run, counted alone
+    K.klt_track_pyramid.launches = 0
+    t0 = time.perf_counter()
+    res = R.bench_batch_full_frame(reader, cfg, BATCH_LANES, dtype=f32, limit_frames=BATCH_FRAMES,
+                                   chunk_size=BATCH_CHUNK, reps=BATCH_REPS, device="cuda")
+    torch.cuda.synchronize()
+    bench_s = time.perf_counter() - t0
+    launches = K.klt_track_pyramid.launches
+    if not res["full_frame_batch_finite"] or res["full_frame_batch_frames"] != BATCH_FRAMES or \
+            res["full_frame_batch_B"] != BATCH_LANES:
+        fail(f"batch: {json.dumps(res)}")
+    # eager launches: the warm-ups before the capture and the counted step; the replays launch it uncounted
+    if launches != WARMUP_STEPS + R.COST_STEPS:
+        fail(f"batch: the KLT wrapper counted {launches} eager launches, not the {WARMUP_STEPS} warm-ups and "
+             f"{R.COST_STEPS} counted step")
+
+    # lanes 0 and 7 against their own single-sequence runs on the same noised frames
+    inp = R.collect_fused_inputs(reader, cfg, BATCH_FRAMES, f32, "cuda")
+    imgs = torch.as_tensor(noised_lanes(inp.imgs, BATCH_LANES)).to(dev)
+    meta = torch.as_tensor(inp.meta, dtype=f32).to(dev)
+    meta_b = meta.expand(BATCH_LANES, *meta.shape)
+    args = (inp.tcfg, inp.settings, inp.settings.suite, inp.camera, inp.imu_window, f32)
+    batch = R.BatchChunkRunner(*args, *broadcast_lanes((inp.state, inp.tracker), BATCH_LANES), dev)
+    n, N = BATCH_CMP_FRAMES, inp.tcfg.max_features
+    outs_b = batch.run(imgs[:, :n], meta_b[:, :n]).cpu().numpy()
+    singles, gaps = {}, {}
+    for lane in BATCH_CHECK_LANES:
+        one = R.ChunkRunner(*args, inp.state, inp.tracker, dev)
+        o = one.run(imgs[lane, :n], meta[:n]).cpu().numpy()
+        singles[lane] = (one, o)
+        d_pos, d_px = 0.0, 0.0
+        for k in range(n):
+            u_b, u_1 = R._unpack_outputs(outs_b[lane, k], N), R._unpack_outputs(o[k], N)
+            if not (np.array_equal(u_b[-1], u_1[-1]) and np.array_equal(u_b[-2][u_b[-1]], u_1[-2][u_1[-1]])):
+                fail(f"batch: lane {lane}'s tracked ids differ from its single-sequence run at frame {k}")
+            d_pos = max(d_pos, float(np.abs(u_b[1] - u_1[1]).max()))
+            d_px = max(d_px, float(np.abs(u_b[-3][u_b[-1]] - u_1[-3][u_1[-1]]).max(initial=0.0)))
+        if not d_pos <= FUSED_TOL_M or not d_px <= BATCH_PX_TOL:
+            fail(f"batch: lane {lane} against its single-sequence run over {n} frames: positions {d_pos} m "
+                 f"(limit {FUSED_TOL_M}), pixels {d_px} px (limit {BATCH_PX_TOL})")
+        gaps[lane] = (d_pos, d_px)
+    # the two lanes' own runs must lie apart, so that a lane fed the other's frames fails
+    (_, o_a), (_, o_b) = (singles[lane] for lane in BATCH_CHECK_LANES)
+    apart = 0.0
+    for k in range(n):
+        u_a, u_b = R._unpack_outputs(o_a[k], N), R._unpack_outputs(o_b[k], N)
+        both = u_a[-1] & u_b[-1] & (u_a[-2] == u_b[-2])
+        apart = max(apart, float(np.abs(u_a[-3][both] - u_b[-3][both]).max(initial=0.0)))
+    if not apart > 2 * BATCH_PX_TOL:
+        fail(f"batch: lanes {BATCH_CHECK_LANES}' single-sequence runs track within {apart} px of each other (must "
+             f"exceed {2 * BATCH_PX_TOL})")
+
+    # a traced window of batched frames against one lane's
+    s, w = n, BATCH_WINDOW
+    win_b = replay_window("batch", lambda: batch.run(imgs[:, s:s + w], meta_b[:, s:s + w]), batch.step.snapshot,
+                          batch.step.restore, os.path.join(PROFILE_DIR, "batch"), dev, w)
+    one0 = singles[BATCH_CHECK_LANES[0]][0]
+    win_1 = replay_window("batch one lane", lambda: one0.run(imgs[0, s:s + w], meta[s:s + w]), one0.step.snapshot,
+                          one0.step.restore, os.path.join(PROFILE_DIR, "batch1"), dev, w)
+    for label, win in (("batched", win_b), ("one lane", win_1)):
+        whole_klt = [k for k, whole in zip(win["klt_per_launch"], win["whole"]) if whole]
+        lead = win["whole"].index(True)
+        if any(k != 1 for k in whole_klt) or any(k > 1 for k in win["klt_per_launch"][:lead]) or lead > w // 2:
+            fail(f"batch ({label}): klt_pyramid_kernel launches per graph launch {win['klt_per_launch']} "
+                 f"(whole launches {win['whole']})")
+    per_b, per_1 = win_b["events_per_launch"], win_1["events_per_launch"]
+    if per_b > per_1 + BATCH_LAUNCH_SLACK:
+        fail(f"batch: {per_b} device events per batched frame against {per_1} for one lane (limit "
+             f"+{BATCH_LAUNCH_SLACK}): the launches grow with the {BATCH_LANES} lanes")
+    cost_b = batch.step.cost_analysis()
+    cost_1 = one0.step.cost_analysis()
+    ms_b, ms_1 = win_b["device_ms_per_frame"], win_1["device_ms_per_frame"]
+    klt_ms = sum(win_b["klt_us"]) / len(win_b["klt_us"]) / 1e3
+    print(f"batch: {BATCH_LANES} lanes of the benchmark scene ({BATCH_SECONDS:.0f} s cut, first {BATCH_FRAMES} frames "
+          f"of 752x480, chunks of {BATCH_CHUNK}, float32, pixel noise per lane): full_frame_batch_fps "
+          f"{res['full_frame_batch_fps']:.1f}, per sequence {res['full_frame_batch_per_seq_fps']:.1f} frames/s, "
+          f"full_frame_batch_gflops_per_s {res['full_frame_batch_gflops_per_s']:.3f}, finite "
+          f"{res['full_frame_batch_finite']} (best of {BATCH_REPS} passes; the run took {bench_s:.1f} s with its "
+          f"capture; scene built on the host in {build_s:.1f} s); KLT wrapper {launches} eager launches "
+          f"({card})", flush=True)
+    print(f"batch: lanes {BATCH_CHECK_LANES} against their own single-sequence runs over {n} frames: ids equal, "
+          f"positions within {max(g[0] for g in gaps.values()):.3g} m, pixels within "
+          f"{max(g[1] for g in gaps.values()):.3g} px; the two lanes' runs track {apart:.3g} px apart ({card})",
+          flush=True)
+    print(f"batch: traced frames {s}-{s + w - 1}: device {ms_b:.3f} ms per batched frame against one lane's "
+          f"{ms_1:.3f} ({ms_b / ms_1:.2f}x for {BATCH_LANES} lanes); device events per frame {per_b} batched against "
+          f"{per_1} for one lane (limit +{BATCH_LAUNCH_SLACK}); klt_pyramid_kernel once per whole graph launch, "
+          f"{klt_ms:.5f} ms each in the graph (one lane's {sum(win_1['klt_us']) / len(win_1['klt_us']) / 1e3:.5f}); "
+          f"{win_b['note']} ({card})", flush=True)
+    print(f"batch: counted per batched frame {cost_b['flops'] / 1e6:.3f} MFLOP and {cost_b['bytes accessed'] / 1e6:.3f} "
+          f"MB in {cost_b['ops']} ops ({cost_b['flops'] / cost_1['flops']:.4f}x and "
+          f"{cost_b['bytes accessed'] / cost_1['bytes accessed']:.4f}x one lane's {cost_1['flops'] / 1e6:.3f} MFLOP, "
+          f"{cost_1['bytes accessed'] / 1e6:.3f} MB), {cost_b['flops'] / (ms_b * 1e6):.3f} GFLOP/s and "
+          f"{cost_b['bytes accessed'] / (ms_b * 1e6):.3f} GB/s against the traced frames' device time; largest "
+          f"per batched frame: {win_b['largest']}; one lane: {win_1['largest']} ({card})", flush=True)
+    return {"launches": launches, "chunk": sum(win_b["klt_per_launch"]), "window": w, "graph_replay_ms": klt_ms}
 
 
 def main() -> None:
@@ -739,6 +905,37 @@ def main() -> None:
               f"graph replay {t['graph_ms']:.5f}), plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.6f} ms "
               f"({t['bound_by']}) ({card})", flush=True)
 
+    # (e) the sequence batch's shape: 8 lanes of the benchmark pair, one launch
+    lcase = B.klt_lanes_case(dev, reader, lanes=BATCH_LANES)
+    lanes_n = lcase.main.shape[0] * lcase.main.shape[1]
+    K.klt_track_pyramid.launches = 0
+    pos_l, err_l = K.klt_track_pyramid(lcase.pyr0, lcase.pyr1, lcase.main, lcase.main, win, iters)
+    torch.cuda.synchronize()
+    pos_lp, err_lp = K.klt_track_pyramid_plain(lcase.pyr0, lcase.pyr1, lcase.main, lcase.main, win, iters)
+    ok_l = gate(pos_l.reshape(-1, 2), err_l.reshape(-1), (H, W), lcase.max_error)
+    if not torch.equal(ok_l, gate(pos_lp.reshape(-1, 2), err_lp.reshape(-1), (H, W), lcase.max_error)) or \
+            int(ok_l.sum()) < lanes_n * 2 // 3:
+        fail(f"lanes: tracked masks differ from the plain version or too few tracked ({int(ok_l.sum())} of {lanes_n})")
+    err_lanes = float((pos_l - pos_lp).reshape(-1, 2).abs()[ok_l].max())
+    if not np.isfinite(err_lanes) or err_lanes > KERNEL_TOL_PX:
+        fail(f"lanes: kernel vs plain max |dpos| {err_lanes} px (limit {KERNEL_TOL_PX})")
+    for b in range(BATCH_LANES):
+        one = K.klt_track_pyramid([t[b] for t in lcase.pyr0], [t[b] for t in lcase.pyr1], lcase.main[b],
+                                  lcase.main[b], win, iters)
+        if not (torch.equal(one[0], pos_l[b]) and torch.equal(one[1], err_l[b])):
+            fail(f"lanes: lane {b} of the batched launch is not bitwise its single-lane launch")
+    if K.klt_track_pyramid.launches != 1 + BATCH_LANES:
+        fail(f"lanes: {K.klt_track_pyramid.launches} launches for one batched and {BATCH_LANES} single calls")
+    lanes_t = case_times(K, B, lcase)
+    lanes_t["host_ms"] = B.host_ms(lambda: K.klt_track_pyramid(lcase.pyr0, lcase.pyr1, lcase.main, lcase.main, win,
+                                                               iters))
+    print(f"kernel: sequence batch, {BATCH_LANES} lanes of the benchmark pair with their own pixel noise, one launch of "
+          f"{lanes_n} blocks: max |dpos| {err_lanes:.3g} px over {int(ok_l.sum())} of {lanes_n}, masks equal, every "
+          f"lane bitwise its single-lane launch; {lanes_t['shape']}: device {lanes_t['ms']:.5f} ms (profiler "
+          f"{lanes_t['profiler_ms']}, graph replay {lanes_t['graph_ms']:.5f}) against {ms_device:.5f} for one lane, host "
+          f"{lanes_t['host_ms']:.5f} ms/call, plain {lanes_t['plain_ms']:.4f} ms, bound {lanes_t['bound_ms']:.6f} ms "
+          f"({lanes_t['bound_by']}) ({card})", flush=True)
+
     # ---- 4. the slice on the card ----------------------------------------
     run_dataset(reader, cfg, device="cuda", chunk_size=1, limit_frames=5)  # warm-up: library handles, allocator
     K.klt_track_pyramid.launches = 0
@@ -774,6 +971,7 @@ def main() -> None:
     print(f"cpu: first {n} frames, cpu f64 vs cuda f32 max position difference {diff:.3g} m", flush=True)
 
     # ---- 6. the fused path: the frame step as a CUDA graph ----------------
+    from eqvio_tpu_torch.app.run_opt import COST_STEPS
     from eqvio_tpu_torch.graph import WARMUP_STEPS
 
     run_dataset(reader, cfg, device="cuda", chunk_size=CHUNK, limit_frames=2 * CHUNK)  # warm-up
@@ -795,9 +993,9 @@ def main() -> None:
         fail("fused: the run captured no graph")
     # the wrapper counts eager launches only: the warm-up before each capture of
     # the frame step and of the calibration's three feature stages
-    if warmup_launches != WARMUP_STEPS * 4:
+    if warmup_launches != WARMUP_STEPS * 4 + COST_STEPS:
         fail(f"fused: the KLT wrapper counted {warmup_launches} eager launches, not the "
-             f"{WARMUP_STEPS * 4} of the warm-ups before capture")
+             f"{WARMUP_STEPS * 4} of the warm-ups before capture and the {COST_STEPS} counted step")
     n = FUSED_FRAMES
     if not np.array_equal(fused["stamps"][:n], summary["stamps"][:n]):
         fail("fused: the fused and eager runs' stamps differ")
@@ -827,6 +1025,12 @@ def main() -> None:
     # wall time per frame without the set-up (capture, calibration) and the traced chunk
     ms_fused = (wall_f - setup_s - prof["s"]) * 1e3 / (frames_f - prof["frames"])
     sections = fused["device_sections_ms"]
+    if not all(fused.get(k, 0) > 0 for k in ("flops_per_frame", "hbm_bytes_per_frame", "achieved_gflops",
+                                            "achieved_hbm_gbps")):
+        fail(f"fused: the summary lacks the counted work per frame: {fused.get('flops_per_frame')}")
+    print(f"fused: counted per frame {fused['flops_per_frame'] / 1e6:.3f} MFLOP and "
+          f"{fused['hbm_bytes_per_frame'] / 1e6:.3f} MB, achieved {fused['achieved_gflops']:.3f} GFLOP/s and "
+          f"{fused['achieved_hbm_gbps']:.3f} GB/s against the device time ({card})", flush=True)
     print(f"fused: {frames_f} frames on cuda f32 in chunks of {CHUNK}: {ms_fused:.3f} ms/frame without the "
           f"{setup_s:.2f} s of capture and calibration and the traced chunk's {prof['s']:.2f} s "
           f"({wall_f * 1e3 / frames_f:.3f} with them), eager {ms_frame:.2f} ms/frame in the same process; "
@@ -874,9 +1078,9 @@ def main() -> None:
     _, cpu_r = run_dataset(racing, cfg_r, device="cpu", chunk_size=1, limit_frames=FUSED_FRAMES)
     frames_r = fused_r["frames"]
     check_run("fisheye", state_r, fused_r, frames=len(racing.images.stamps))
-    if warmup_r != WARMUP_STEPS * 4:
+    if warmup_r != WARMUP_STEPS * 4 + COST_STEPS:
         fail(f"fisheye: the KLT wrapper counted {warmup_r} eager launches in the fused run, not the "
-             f"{WARMUP_STEPS * 4} of the warm-ups before capture")
+             f"{WARMUP_STEPS * 4} of the warm-ups before capture and the {COST_STEPS} counted step")
     gt_r = racing.groundtruth
     gt_pos_r = np.stack([np.interp(fused_r["stamps"], gt_r.stamps, gt_r.position[:, i]) for i in range(3)], -1)
     rmse_r = umeyama_rmse(fused_r["positions"], gt_pos_r)
@@ -931,9 +1135,9 @@ def main() -> None:
     _, cpu_a = run_dataset(reader, cfg_t, device="cpu", chunk_size=1, limit_frames=MODE_FRAMES)
     check_run("modes (a) dense f64", state_a, dense, frames=2 * CHUNK)
     if state_a.Sigma.dtype != torch.float64 or settings_from_config(cfg_t).sqrt_covariance or \
-            launches_a != WARMUP_STEPS:
+            launches_a != WARMUP_STEPS + COST_STEPS:
         fail(f"modes (a): Sigma {state_a.Sigma.dtype}, KLT wrapper {launches_a} eager launches (expected the "
-             f"{WARMUP_STEPS} warm-ups before capture)")
+             f"{WARMUP_STEPS} warm-ups before capture and the {COST_STEPS} counted step)")
     n = MODE_FRAMES
     if not np.array_equal(dense["feature_ids"][:n], cpu_a["feature_ids"][:n]):
         fail("modes (a): tracked ids differ from the cpu float64 run")
@@ -955,9 +1159,9 @@ def main() -> None:
     wall_b = time.perf_counter() - t0
     launches_b = K.klt_track_pyramid.launches
     check_run("modes (b) square-root f32", state_b, sqrt_b, frames=frames)
-    if state_b.Sigma.dtype != torch.float32 or launches_b != WARMUP_STEPS * 4:
+    if state_b.Sigma.dtype != torch.float32 or launches_b != WARMUP_STEPS * 4 + COST_STEPS:
         fail(f"modes (b): Sigma {state_b.Sigma.dtype}, KLT wrapper {launches_b} eager launches (expected the "
-             f"{WARMUP_STEPS * 4} warm-ups before capture)")
+             f"{WARMUP_STEPS * 4} warm-ups before capture and the {COST_STEPS} counted step)")
     gt_pos_b = np.stack([np.interp(sqrt_b["stamps"], gt.stamps, gt.position[:, i]) for i in range(3)], -1)
     rmse_b = umeyama_rmse(sqrt_b["positions"], gt_pos_b)
     ms_b = (wall_b - sqrt_b["setup_s"]) * 1e3 / sqrt_b["frames"]
@@ -974,9 +1178,9 @@ def main() -> None:
         state_m, run_m = run_dataset(reader, cfg_m, device="cuda", chunk_size=CHUNK, limit_frames=MODE_FRAMES)
         launches_m = K.klt_track_pyramid.launches
         check_run(f"modes (c) {name}", state_m, run_m, frames=MODE_FRAMES)
-        if launches_m != WARMUP_STEPS:
+        if launches_m != WARMUP_STEPS + COST_STEPS:
             fail(f"modes (c) {name}: KLT wrapper {launches_m} eager launches (expected the {WARMUP_STEPS} "
-                 f"warm-ups before capture)")
+                 f"warm-ups before capture and the {COST_STEPS} counted step)")
         print(f"modes (c): template config with {json.dumps(patch)}, float32 square-root, fused on cuda over "
               f"{MODE_FRAMES} frames: finite and healthy, {run_m['landmarks']} landmarks; device "
               f"{run_m.get('device_ms_per_frame')} ms/frame; graph capture {run_m['graph']['capture_s']:.3f} s, "
@@ -987,6 +1191,9 @@ def main() -> None:
 
     # ---- 10. the MH_03 proxy, fused, float32 -------------------------------
     mh = phase_mh03(mh03, cfg_mh03, mh03_build_s, card)
+
+    # ---- 11. the tracker-inclusive sequence batch ----------------------------
+    bt = phase_batch(card)
 
     print(json.dumps({"kernels": [{
         "name": "klt_track_pyramid",
@@ -1042,6 +1249,24 @@ def main() -> None:
         "plain_ms": mt["plain_ms"],
         "bound_ms": mt["bound_ms"],
         "bound_by": mt["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "klt_track_pyramid",
+        "shape": f"sequence batch: {lanes_t['shape']}, one launch",
+        "route": "cuda",
+        "source": "eqvio_tpu_torch/csrc/klt_cuda.cu",
+        "replaces": "eqvio_tpu/frontend/pallas_klt.py:106",
+        "launches": bt["launches"],
+        "launches_batch_window": bt["chunk"],
+        "batch_window_frames": bt["window"],
+        "max_abs_err": err_lanes,
+        "ms": lanes_t["ms"],
+        "graph_replay_ms": bt["graph_replay_ms"],
+        "graph_ms": lanes_t["graph_ms"],
+        "host_ms": lanes_t["host_ms"],
+        "plain_ms": lanes_t["plain_ms"],
+        "bound_ms": lanes_t["bound_ms"],
+        "bound_by": lanes_t["bound_by"],
         "library_ms": None,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

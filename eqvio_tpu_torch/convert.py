@@ -4,7 +4,10 @@ The ``*_from_numpy`` functions take the JAX package's ``EqFState``,
 ``TrackerState`` and ``Settings`` (or any objects with the same field names
 whose leaves ``np.asarray`` accepts) and build the port's types on a given
 device and dtype; :func:`eqf_state_to_numpy` goes the other way.  Nothing
-here imports ``jax``: the JAX objects are read by attribute.
+here imports ``jax``: the JAX objects are read by attribute.  Leaves keep
+their shapes, so a JAX batch's states and trackers (a leading lane axis,
+as ``_make_batch_chunk_runner`` carries them) become the port's batched
+carry for ``app.run_opt.BatchChunkRunner`` as they are.
 """
 
 from __future__ import annotations

@@ -54,6 +54,15 @@
 // - Shared memory per block: 2 x 8 float4 partials and KLT_MAX_LEVELS tiles
 //   of at most 35^2 floats (win <= 32) stay under the 48 KB that needs no
 //   opt-in.
+//
+// Lanes (jax.vmap of the Pallas call over B sequences,
+// eqvio_tpu/app/run_opt.py:_make_batch_chunk_runner): one launch tracks
+// B x N features, one block per (lane, feature), lane = blockIdx.x / N.
+// Each level's images are [B, H_l, W_l] with a lane stride of its own (0
+// for a pyramid shared by every lane); positions, guesses and outputs are
+// [B, N, 2] and [B, N].  A block does the same arithmetic as with one lane,
+// so a lane's outputs do not depend on the others, and B = 1 is the
+// single-lane launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -69,6 +78,8 @@ struct KltPyramid {
   int width[KLT_MAX_LEVELS];
   float xmax[KLT_MAX_LEVELS];  // float32(W - 1.001), rounded on the host
   float ymax[KLT_MAX_LEVELS];  // float32(H - 1.001)
+  long long prev_lane_stride[KLT_MAX_LEVELS];  // floats from one lane's image to the next
+  long long next_lane_stride[KLT_MAX_LEVELS];
   int levels;
 };
 
@@ -221,16 +232,18 @@ __device__ __forceinline__ void block_sum3(float& a, float& b, float& c, float4*
   }
 }
 
-// One block per feature.  Shared memory: [2 x KLT_WARPS float4 partials]
-// [the prev tile of each level, pitch win + 3].
+// One block per (lane, feature): block f tracks feature f % n of lane
+// f / n.  Shared memory: [2 x KLT_WARPS float4 partials] [the prev tile of
+// each level, pitch win + 3].
 template <int SPT>
 __global__ void __launch_bounds__(KLT_THREADS)
 klt_pyramid_kernel(KltPyramid pyr, const float* __restrict__ pos, const float* __restrict__ guess,
-                   float* __restrict__ out_pos, float* __restrict__ out_err, int win, int iters) {
+                   float* __restrict__ out_pos, float* __restrict__ out_err, int n, int win, int iters) {
   extern __shared__ float4 smem4[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int f = blockIdx.x;
+  const long long seq = f / n;  // the sequence lane of this block
   float4* red = smem4;
   float* prev_tiles = reinterpret_cast<float*>(red + 2 * KLT_WARPS);
   const int tprev = win + 3;
@@ -259,7 +272,7 @@ klt_pyramid_kernel(KltPyramid pyr, const float* __restrict__ pos, const float* _
   // every level's prev tile: the centres are known at launch
   for (int l = top; l >= 0; --l) {
     const int w = pyr.width[l], h = pyr.height[l];
-    stage_tile(prev_tiles + l * tprev2, tprev, pyr.prev[l], w,
+    stage_tile(prev_tiles + l * tprev2, tprev, pyr.prev[l] + seq * pyr.prev_lane_stride[l], w,
                tile_at(posx * pow2_neg(l), posy * pow2_neg(l), reach, tprev, w, h), warp, lane);
   }
   cp_async_commit_wait_all();
@@ -270,6 +283,8 @@ klt_pyramid_kernel(KltPyramid pyr, const float* __restrict__ pos, const float* _
   for (int lvl = top; lvl >= 0; --lvl) {
     const int w = pyr.width[lvl], h = pyr.height[lvl];
     const float xmax = pyr.xmax[lvl], ymax = pyr.ymax[lvl];
+    const float* prev = pyr.prev[lvl] + seq * pyr.prev_lane_stride[lvl];
+    const float* next = pyr.next[lvl] + seq * pyr.next_lane_stride[lvl];
     const float cx = posx * pow2_neg(lvl), cy = posy * pow2_neg(lvl);
     if (lvl < top) {
       px *= 2.0f;
@@ -284,8 +299,7 @@ klt_pyramid_kernel(KltPyramid pyr, const float* __restrict__ pos, const float* _
       template_samples<SPT>(TileFetch{prev_tiles + lvl * tprev2, tprev, tp.x0, tp.y0, xmax, ymax},
                             cx, cy, ox, oy, valid, tm, gx, gy);
     else
-      template_samples<SPT>(ImageFetch{pyr.prev[lvl], w, xmax, ymax}, cx, cy, ox, oy, valid, tm,
-                            gx, gy);
+      template_samples<SPT>(ImageFetch{prev, w, xmax, ymax}, cx, cy, ox, oy, valid, tm, gx, gy);
     float sxx = 0.0f, sxy = 0.0f, syy = 0.0f;
 #pragma unroll
     for (int j = 0; j < SPT; ++j) {
@@ -299,7 +313,7 @@ klt_pyramid_kernel(KltPyramid pyr, const float* __restrict__ pos, const float* _
 
     // Gauss-Newton steps: sum d * gx, sum d * gy and sum |d| with d the
     // residual at (px, py)
-    const ImageFetch at{pyr.next[lvl], w, xmax, ymax};
+    const ImageFetch at{next, w, xmax, ymax};
     for (int it = 0; it < iters; ++it) {
       float bx = 0.0f, by = 0.0f;
       ad = 0.0f;
@@ -327,27 +341,35 @@ klt_pyramid_kernel(KltPyramid pyr, const float* __restrict__ pos, const float* _
 
 template <int SPT>
 static int launch(const KltPyramid& pyr, const float* pos, const float* guess, float* out_pos,
-                  float* out_err, int n, int win, int iters, cudaStream_t stream) {
+                  float* out_err, int lanes, int n, int win, int iters, cudaStream_t stream) {
   const size_t smem = (2 * KLT_WARPS * 4 + (size_t)pyr.levels * (win + 3) * (win + 3)) * sizeof(float);
-  klt_pyramid_kernel<SPT><<<n, KLT_THREADS, smem, stream>>>(pyr, pos, guess, out_pos, out_err, win,
-                                                            iters);
+  klt_pyramid_kernel<SPT><<<lanes * n, KLT_THREADS, smem, stream>>>(pyr, pos, guess, out_pos, out_err,
+                                                                    n, win, iters);
   return (int)cudaGetLastError();
 }
 
-// C entry point for ctypes.  Pointers are device pointers except the four
-// per-level host arrays.  Returns cudaGetLastError() after the launch, or
+// C entry point for ctypes: `lanes` sequences of `n` features in one
+// launch.  Pointers are device pointers except the six per-level host
+// arrays; level l of lane b starts at prev_ptrs[l] + b * prev_strides[l]
+// floats (next likewise).  Returns cudaGetLastError() after the launch, or
 // cudaErrorInvalidValue for arguments the kernel does not take.
-extern "C" int klt_track_pyramid_f32(const uint64_t* prev_ptrs, const uint64_t* next_ptrs,
-                                     const int* heights, const int* widths, int levels,
-                                     const float* pos, const float* guess, float* out_pos,
-                                     float* out_err, int n, int win, int iters, void* stream) {
-  if (levels < 1 || levels > KLT_MAX_LEVELS || n < 1 || win < 1 || win * win > 1024 || iters < 1)
+extern "C" int klt_track_pyramid_lanes_f32(const uint64_t* prev_ptrs, const uint64_t* next_ptrs,
+                                           const long long* prev_strides,
+                                           const long long* next_strides, const int* heights,
+                                           const int* widths, int levels, int lanes,
+                                           const float* pos, const float* guess, float* out_pos,
+                                           float* out_err, int n, int win, int iters, void* stream) {
+  if (levels < 1 || levels > KLT_MAX_LEVELS || lanes < 1 || n < 1 || (long long)lanes * n > 2147483647LL ||
+      win < 1 || win * win > 1024 || iters < 1)
     return (int)cudaErrorInvalidValue;
   KltPyramid pyr;
   for (int l = 0; l < levels; ++l) {
-    if (heights[l] < 2 || widths[l] < 2) return (int)cudaErrorInvalidValue;
+    if (heights[l] < 2 || widths[l] < 2 || prev_strides[l] < 0 || next_strides[l] < 0)
+      return (int)cudaErrorInvalidValue;
     pyr.prev[l] = reinterpret_cast<const float*>(prev_ptrs[l]);
     pyr.next[l] = reinterpret_cast<const float*>(next_ptrs[l]);
+    pyr.prev_lane_stride[l] = prev_strides[l];
+    pyr.next_lane_stride[l] = next_strides[l];
     pyr.height[l] = heights[l];
     pyr.width[l] = widths[l];
     pyr.xmax[l] = (float)((double)widths[l] - 1.001);
@@ -357,7 +379,18 @@ extern "C" int klt_track_pyramid_f32(const uint64_t* prev_ptrs, const uint64_t* 
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   // samples per lane: the least of 1, 2, 4 that covers the window
   const int need = (win * win + KLT_THREADS - 1) / KLT_THREADS;
-  if (need <= 1) return launch<1>(pyr, pos, guess, out_pos, out_err, n, win, iters, st);
-  if (need <= 2) return launch<2>(pyr, pos, guess, out_pos, out_err, n, win, iters, st);
-  return launch<4>(pyr, pos, guess, out_pos, out_err, n, win, iters, st);
+  if (need <= 1) return launch<1>(pyr, pos, guess, out_pos, out_err, lanes, n, win, iters, st);
+  if (need <= 2) return launch<2>(pyr, pos, guess, out_pos, out_err, lanes, n, win, iters, st);
+  return launch<4>(pyr, pos, guess, out_pos, out_err, lanes, n, win, iters, st);
+}
+
+// The single-sequence entry of the earlier releases: one lane.
+extern "C" int klt_track_pyramid_f32(const uint64_t* prev_ptrs, const uint64_t* next_ptrs,
+                                     const int* heights, const int* widths, int levels,
+                                     const float* pos, const float* guess, float* out_pos,
+                                     float* out_err, int n, int win, int iters, void* stream) {
+  if (levels < 1 || levels > KLT_MAX_LEVELS) return (int)cudaErrorInvalidValue;
+  const long long zero[KLT_MAX_LEVELS] = {0, 0, 0, 0, 0, 0, 0, 0};
+  return klt_track_pyramid_lanes_f32(prev_ptrs, next_ptrs, zero, zero, heights, widths, levels, 1,
+                                     pos, guess, out_pos, out_err, n, win, iters, stream);
 }

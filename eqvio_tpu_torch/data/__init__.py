@@ -6,6 +6,7 @@ from .synthetic import (
     bench_scene,
     distractor_proxy,
     mh03_proxy,
+    noised_lanes,
     racing_proxy,
     shifted_texture_pair,
     v101_proxy,
@@ -27,6 +28,7 @@ __all__ = [
     "create_dataset_reader",
     "distractor_proxy",
     "mh03_proxy",
+    "noised_lanes",
     "racing_proxy",
     "shifted_texture_pair",
     "v101_proxy",

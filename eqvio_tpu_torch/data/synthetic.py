@@ -286,5 +286,17 @@ def shifted_texture_pair(height: int, width: int, shift: tuple[int, int], seed: 
     return img, torch.roll(img, shifts=(shift[1], shift[0]), dims=(0, 1)).contiguous()
 
 
+def noised_lanes(imgs: np.ndarray, batch: int, noise_seed: int = 7) -> np.ndarray:
+    """``batch`` copies of the frames ``imgs [T, H, W]`` (uint8), each with
+    its own pixel noise in [-3, 3] from ``np.random.default_rng(noise_seed)``,
+    drawn lane after lane as the JAX package's ``bench_batch_full_frame``
+    draws it, so lane b's frames are its lane b's bit for bit: ``[B, T, H, W]``."""
+    rng = np.random.default_rng(noise_seed)
+    return np.stack([
+        np.clip(imgs.astype(np.int16) + rng.integers(-3, 4, imgs.shape, dtype=np.int16), 0, 255).astype(np.uint8)
+        for _ in range(batch)
+    ])
+
+
 __all__ = ["SyntheticASLReader", "SyntheticUZHFPVReader", "bench_scene", "distractor_proxy", "mh03_proxy",
-           "racing_proxy", "shifted_texture_pair", "v101_proxy"]
+           "noised_lanes", "racing_proxy", "shifted_texture_pair", "v101_proxy"]

@@ -92,13 +92,14 @@ def equalize_histogram(img: torch.Tensor, bins: int = 256) -> torch.Tensor:
     """Histogram equalisation of a [0, 1] float32 image (GIFT
     ``equaliseImageHistogram``).
 
-    The histogram is a ``scatter_add_`` into ``bins`` float32 bins, never
-    ``torch.bincount``, which sizes its output on the host.  Counts are whole
+    The histogram is an out-of-place ``scatter_add`` into ``bins`` float32
+    bins (the in-place form cannot take a lane axis under ``torch.func.vmap``),
+    never ``torch.bincount``, which sizes its output on the host.  Counts are whole
     numbers below 2^24, so the float32 sums and their cumulative sum are
     exact in any order."""
     flat = torch.clamp(img.reshape(-1), 0.0, 1.0)
     idx = torch.clamp((flat * (bins - 1)).to(torch.int64), 0, bins - 1)
-    hist = torch.zeros(bins, dtype=img.dtype, device=img.device).scatter_add_(0, idx, torch.ones_like(flat))
+    hist = torch.zeros(bins, dtype=img.dtype, device=img.device).scatter_add(0, idx, torch.ones_like(flat))
     cdf = torch.cumsum(hist, dim=0)
     cdf = (cdf - cdf[0]) / torch.clamp(cdf[-1] - cdf[0], min=1.0)
     return cdf[idx].reshape(img.shape)

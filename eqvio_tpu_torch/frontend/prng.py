@@ -68,7 +68,11 @@ def random_bits32(key: torch.Tensor, shape) -> torch.Tensor:
 
 
 def uniform(key: torch.Tensor, shape) -> torch.Tensor:
-    """``jax.random.uniform(key, shape, float32)`` in [0, 1)."""
+    """``jax.random.uniform(key, shape, float32)`` in [0, 1).
+
+    JAX bitcasts ``(bits >> 9) | 0x3F800000`` to a float in [1, 2) and
+    subtracts 1; ``m * 2^-23`` with ``m = bits >> 9`` (23 bits, exact in
+    float32) is that difference bit for bit, without the bitcast, which has
+    no batching rule under ``torch.func.vmap`` in some torch releases."""
     bits = random_bits32(key, shape)
-    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
-    return torch.clamp(f, min=0.0)
+    return (bits >> 9).to(torch.float32) * (2.0 ** -23)

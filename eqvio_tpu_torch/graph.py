@@ -7,10 +7,13 @@ call, and on the card each call replays the one captured graph.
 
 from __future__ import annotations
 
+import gc
 import time
 
 import torch
-from torch.utils._pytree import tree_flatten, tree_unflatten
+from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
+
+from . import cost
 
 WARMUP_STEPS = 2  # eager steps on a side stream before capture (library handles, allocator)
 
@@ -20,6 +23,11 @@ def select(valid: torch.Tensor, a, b):
     la, spec = tree_flatten(a)
     lb, _ = tree_flatten(b)
     return tree_unflatten([torch.where(valid, x, y) for x, y in zip(la, lb)], spec)
+
+
+def broadcast_lanes(tree, lanes: int):
+    """``tree`` with a leading lane axis: ``lanes`` copies of every leaf."""
+    return tree_map(lambda a: a.expand(lanes, *a.shape).clone(), tree)
 
 
 class GraphStep:
@@ -63,12 +71,22 @@ class GraphStep:
         cur.wait_stream(side)
         self.restore(saved)  # the warm-up must not advance the carry
         torch.cuda.synchronize(self.device)
+        # Dead reference cycles may hold earlier graphs, whose destruction is a
+        # CUDA call that invalidates a capture in progress: collect them now,
+        # and keep the collector from running until the capture has ended.
+        gc.collect()
         torch.cuda.empty_cache()  # as the capture does first, so the difference is the pool's
         reserved = torch.cuda.memory_reserved(self.device)
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            out = self._body()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph):
+                out = self._body()
+        finally:
+            if collecting:
+                gc.enable()
         torch.cuda.synchronize(self.device)
         self.capture_s = time.perf_counter() - t0
         self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
@@ -83,6 +101,14 @@ class GraphStep:
             self._capture()
         self.graph.replay()
         return self._out
+
+    def cost_analysis(self) -> dict:
+        """:func:`cost.count` of one step, run eagerly (outside any capture)
+        on copies of the carry and the inputs: the operations and bytes of
+        one step, under XLA's key names.  On the card the step's kernels run
+        once more; the carry does not advance."""
+        carry = tree_unflatten(self.snapshot(), self._spec)
+        return cost.count(self._fn, carry, *[x.clone() for x in self.inputs])
 
     def load(self, carry) -> None:
         self.restore(tree_flatten(carry)[0])

@@ -1,11 +1,16 @@
 """Pyramidal Lucas-Kanade: the CUDA kernel's wrapper and its plain version.
 
 :func:`klt_track_pyramid` tracks N features through all pyramid levels,
-coarse to fine.  On CUDA tensors it launches ``csrc/klt_cuda.cu`` (one launch
-for every level, see the source's header); on CPU tensors it runs
-:func:`klt_track_pyramid_plain`, the vectorised gather path that the kernel
-is checked against.  A CUDA tensor never takes the plain path: the kernel
-launches or the wrapper raises.
+coarse to fine, for one sequence or for lanes of sequences: every argument
+may carry the same leading lane dims (levels ``[*L, H_l, W_l]``, positions
+and guesses ``[*L, N, 2]``).  It is the custom op
+``eqvio_tpu_torch::klt_track_pyramid``: on CUDA tensors it launches
+``csrc/klt_cuda.cu`` once for all lanes and levels (see the source's
+header); on CPU tensors it runs :func:`klt_track_pyramid_plain`, the
+vectorised gather path that the kernel is checked against.  A CUDA tensor
+never takes the plain path: the kernel launches or the op raises.  The op's
+vmap rule moves each batched dim to the front and expands the unbatched
+arguments, so ``torch.func.vmap`` (nested too) reaches the one launch.
 
 The kernel replaces ``eqvio_tpu/frontend/pallas_klt.py:_klt_kernel_body``.
 Beside the plain version sit a Python mirror of the kernel's shared-memory
@@ -18,6 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import numpy as np
 import torch
@@ -35,21 +41,28 @@ MAX_LEVELS = 8
 
 
 def bilinear(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
-    """Bilinear sample of ``img [H, W]`` at ``xy [..., 2]`` (x, y), each
-    sample clamped to ``[0, W - 1.001] x [0, H - 1.001]``."""
-    H, W = img.shape
+    """Bilinear sample of ``img [*L, H, W]`` at ``xy [*L, ..., 2]`` (x, y),
+    each sample clamped to ``[0, W - 1.001] x [0, H - 1.001]``; the lane
+    dims ``L`` (if any) lead both."""
+    H, W = img.shape[-2:]
+    lead = img.shape[:-2]
     x = torch.clamp(xy[..., 0], 0.0, W - 1.001)
     y = torch.clamp(xy[..., 1], 0.0, H - 1.001)
     x0 = torch.floor(x).to(torch.int64)
     y0 = torch.floor(y).to(torch.int64)
     fx = x - x0.to(x.dtype)
     fy = y - y0.to(y.dtype)
-    flat = img.reshape(-1)
     base = y0 * W + x0
-    i00 = flat[base]
-    i01 = flat[base + 1]
-    i10 = flat[base + W]
-    i11 = flat[base + W + 1]
+    if lead:
+        flat = img.reshape(*lead, H * W)
+        at = lambda k: torch.gather(flat, -1, k.reshape(*lead, -1)).reshape(k.shape)  # noqa: E731
+    else:
+        flat = img.reshape(-1)
+        at = lambda k: flat[k]  # noqa: E731
+    i00 = at(base)
+    i01 = at(base + 1)
+    i10 = at(base + W)
+    i11 = at(base + W + 1)
     return i00 * (1 - fx) * (1 - fy) + i01 * fx * (1 - fy) + i10 * (1 - fx) * fy + i11 * fx * fy
 
 
@@ -62,41 +75,42 @@ def _window_offsets(win: int, dtype, device) -> torch.Tensor:
 
 
 def track_level(img_prev, img_next, pos_prev, guess, win: int, iters: int):
-    """One pyramid level of LK for all features ``[N, 2]``; returns
-    ``(positions [N, 2], err [N])``."""
+    """One pyramid level of LK for all features ``[*L, N, 2]`` (images
+    ``[*L, H, W]``); returns ``(positions [*L, N, 2], err [*L, N])``."""
     dtype = pos_prev.dtype
     offs = _window_offsets(win, dtype, pos_prev.device)
-    coords = pos_prev[:, None, None, :] + offs
+    coords = pos_prev[..., :, None, None, :] + offs
     template = bilinear(img_prev, coords)
     ex = const((1.0, 0.0), dtype, pos_prev.device)
     ey = const((0.0, 1.0), dtype, pos_prev.device)
     gx = bilinear(img_prev, coords + ex) - bilinear(img_prev, coords - ex)
     gy = bilinear(img_prev, coords + ey) - bilinear(img_prev, coords - ey)
-    gxx = torch.sum(gx * gx, dim=(1, 2))
-    gxy = torch.sum(gx * gy, dim=(1, 2))
-    gyy = torch.sum(gy * gy, dim=(1, 2))
+    gxx = torch.sum(gx * gx, dim=(-2, -1))
+    gxy = torch.sum(gx * gy, dim=(-2, -1))
+    gyy = torch.sum(gy * gy, dim=(-2, -1))
     det = gxx * gyy - gxy * gxy
     det = torch.where(torch.abs(det) < 1e-12, torch.full_like(det, 1e-12), det)
 
     p = guess
     err = torch.full_like(gxx, float("inf"))
     for _ in range(iters):
-        diff = bilinear(img_next, p[:, None, None, :] + offs) - template
-        bx = torch.sum(diff * gx, dim=(1, 2))
-        by = torch.sum(diff * gy, dim=(1, 2))
+        diff = bilinear(img_next, p[..., :, None, None, :] + offs) - template
+        bx = torch.sum(diff * gx, dim=(-2, -1))
+        by = torch.sum(diff * gy, dim=(-2, -1))
         dx = (gyy * bx - gxy * by) / det
         dy = (gxx * by - gxy * bx) / det
         p = p - torch.stack([dx, dy], dim=-1)
-        err = torch.mean(torch.abs(diff), dim=(1, 2))
+        err = torch.mean(torch.abs(diff), dim=(-2, -1))
     return p, err
 
 
 def klt_track_pyramid_plain(pyr_prev, pyr_next, positions, guesses, win: int = 21, iters: int = 8):
-    """Coarse-to-fine LK over all levels: ``(positions [N, 2], err [N])``,
-    ``err`` from the finest level."""
+    """Coarse-to-fine LK over all levels: ``(positions [*L, N, 2], err
+    [*L, N])``, ``err`` from the finest level; lane dims ``L`` as in
+    :func:`klt_track_pyramid`."""
     levels = len(pyr_prev)
     p = guesses / 2.0 ** (levels - 1)
-    err = torch.zeros(positions.shape[0], dtype=positions.dtype, device=positions.device)
+    err = positions.new_zeros(positions.shape[:-1])
     for lvl in range(levels - 1, -1, -1):
         if lvl < levels - 1:
             p = p * 2.0
@@ -184,10 +198,10 @@ _OPS_LEVEL = 2 + 4
 _OPS_LEVEL_STEP = 8 + 2 + 1
 
 
-def klt_work(n: int, level_shapes, win: int, iters: int) -> tuple[int, int]:
-    """``(bytes, float32 operations)`` that tracking ``n`` features through
-    pyramids of ``level_shapes [(H, W), ...]`` needs, the count a bound is
-    taken from.  Bytes: per feature and level the prev neighbourhood of
+def klt_work(n: int, level_shapes, win: int, iters: int, lanes: int = 1) -> tuple[int, int]:
+    """``(bytes, float32 operations)`` that tracking ``n`` features in each
+    of ``lanes`` sequences through pyramids of ``level_shapes [(H, W), ...]``
+    needs, the count a bound is taken from: ``lanes x n`` features.  Bytes: per feature and level the prev neighbourhood of
     ``(win + 3)^2`` pixels and one next-image window footprint of
     ``(win + 1)^2``, both cut to the image, read once; positions and guesses
     read, positions and err written.  Operations: those of the plain
@@ -199,6 +213,7 @@ def klt_work(n: int, level_shapes, win: int, iters: int) -> tuple[int, int]:
     samples = win * win
     per_level_ops = (samples * (_OPS_TEMPLATE + iters * _OPS_STEP)
                      + _OPS_LEVEL + iters * _OPS_LEVEL_STEP)
+    n = n * lanes
     return n * per_feature_bytes, n * len(level_shapes) * per_level_ops
 
 
@@ -207,10 +222,10 @@ H100_BYTES_PER_S = 3.35e12
 H100_F32_OPS_PER_S = 67e12
 
 
-def bound_ms(n: int, level_shapes, win: int, iters: int) -> tuple[float, str]:
+def bound_ms(n: int, level_shapes, win: int, iters: int, lanes: int = 1) -> tuple[float, str]:
     """The least time an H100 SXM could take for :func:`klt_work`:
     ``(ms, "bytes" | "operations")``."""
-    nbytes, ops = klt_work(n, level_shapes, win, iters)
+    nbytes, ops = klt_work(n, level_shapes, win, iters, lanes)
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, ops / H100_F32_OPS_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -220,8 +235,9 @@ def bound_ms(n: int, level_shapes, win: int, iters: int) -> tuple[float, str]:
 # ---------------------------------------------------------------------------
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# ctypes level arrays by (pointers, shapes): the tracker alternates between
-# a few pyramid buffers, so a frame's call finds its arrays here
+# ctypes level arrays by (pointers, lane strides, shapes): the tracker
+# alternates between a few pyramid buffers, so a frame's call finds its
+# arrays here
 _level_args: dict[tuple, tuple] = {}
 _LEVEL_ARGS_KEEP = 16
 # The raw handle of the current stream: torch.cuda.current_stream(dev)
@@ -234,9 +250,9 @@ _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) or \
 
 @functools.cache
 def _fn():
-    """The bound C entry point ``klt_track_pyramid_f32`` (builds the library)."""
-    fn = build.load(_SOURCE).klt_track_pyramid_f32
-    fn.argtypes = [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P]
+    """The bound C entry point ``klt_track_pyramid_lanes_f32`` (builds the library)."""
+    fn = build.load(_SOURCE).klt_track_pyramid_lanes_f32
+    fn.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P]
     fn.restype = ctypes.c_int
     return fn
 
@@ -247,71 +263,103 @@ def build_kernel() -> float:
     return build.build_seconds[_SOURCE]
 
 
+def _lane_stride(t: torch.Tensor, lead) -> int | None:
+    """The one stride (in elements) from a lane's ``[H, W]`` image to the
+    next when the lane dims ``lead`` of ``t`` are flattened, or None when
+    they do not flatten to one stride (0: every lane reads one image)."""
+    stride, span = None, 1
+    for size, st in reversed(list(zip(lead, t.stride()[:len(lead)]))):
+        if size == 1:
+            continue
+        if stride is None:
+            stride = st
+        elif st != stride * span:
+            return None
+        span *= size
+    return stride or 0
+
+
 def _check_cuda_inputs(pyr_prev, pyr_next, positions, guesses) -> tuple:
-    """Raise on inputs the kernel does not take; returns the pyramids' key
-    (data pointers and shapes) for :data:`_level_args`."""
+    """Raise on inputs the kernel does not take; returns ``(lanes, key,
+    copies)``: the key (data pointers, lane strides and shapes of the
+    pyramids) of :data:`_level_args`, and the copies made of levels whose
+    lane dims do not flatten to one stride (a nested vmap can leave such
+    views), which the caller keeps until the launch is enqueued."""
     levels = len(pyr_prev)
     if levels < 1 or levels > MAX_LEVELS or len(pyr_next) != levels:
         raise ValueError(f"need 1..{MAX_LEVELS} levels in both pyramids, got {levels}/{len(pyr_next)}")
     dev = positions.device
     f32 = torch.float32
+    lead = tuple(positions.shape[:-2])
     for name, t in (("positions", positions), ("guesses", guesses)):
         if t.device != dev or t.dtype != f32 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous float32 tensor on {dev}")
-        if t.dim() != 2 or t.shape[1] != 2 or t.shape[0] != positions.shape[0]:
-            raise ValueError(f"{name} must have shape [N, 2], got {tuple(t.shape)}")
+        if t.dim() < 2 or t.shape[-1] != 2 or t.shape != positions.shape:
+            raise ValueError(f"{name} must have shape [..., N, 2] like positions, got {tuple(t.shape)}")
     on_dev = (lambda t: t.is_cuda and t.get_device() == dev.index) if dev.type == "cuda" else \
         (lambda t: t.device == dev)
-    key = []
+    key, copies = [], []
     for lvl, (a, b) in enumerate(zip(pyr_prev, pyr_next)):
         shape = a.shape
-        if not (on_dev(a) and on_dev(b) and a.dtype == f32 and b.dtype == f32
-                and a.is_contiguous() and b.is_contiguous()):
-            raise ValueError(f"pyramid level {lvl} must be contiguous float32 on {dev}")
-        if len(shape) != 2 or b.shape != shape or shape[0] < 2 or shape[1] < 2:
-            raise ValueError(f"pyramid level {lvl} shapes differ or are too small: "
-                             f"{tuple(a.shape)} vs {tuple(b.shape)}")
-        key += (a.data_ptr(), b.data_ptr(), shape[0], shape[1])
-    return tuple(key)
+        if not (on_dev(a) and on_dev(b) and a.dtype == f32 and b.dtype == f32):
+            raise ValueError(f"pyramid level {lvl} must be float32 on {dev}")
+        if len(shape) != len(lead) + 2 or tuple(shape[:-2]) != lead or b.shape != shape or \
+                shape[-2] < 2 or shape[-1] < 2:
+            raise ValueError(f"pyramid level {lvl} shapes differ, are too small or do not lead with the "
+                             f"positions' lanes {lead}: {tuple(a.shape)} vs {tuple(b.shape)}")
+        h, w = shape[-2:]
+        ptrs = []
+        for t in (a, b):
+            if t.stride()[-2:] != (w, 1):
+                raise ValueError(f"pyramid level {lvl} must have contiguous [H, W] images")
+            stride = _lane_stride(t, lead)
+            if stride is None:
+                t = t.contiguous()
+                stride = h * w
+                copies.append(t)
+            ptrs.append((t.data_ptr(), stride))
+        key += (ptrs[0][0], ptrs[1][0], ptrs[0][1], ptrs[1][1], h, w)
+    return math.prod(lead), tuple(key), copies
 
 
 def _level_arrays(key: tuple) -> tuple:
-    """``(prev pointers, next pointers, heights, widths)`` as ctypes arrays."""
+    """``(prev pointers, next pointers, prev lane strides, next lane
+    strides, heights, widths)`` as ctypes arrays."""
     args = _level_args.get(key)
     if args is None:
-        levels = len(key) // 4
-        u64, i32 = ctypes.c_uint64 * levels, ctypes.c_int * levels
-        args = (u64(*key[0::4]), u64(*key[1::4]), i32(*key[2::4]), i32(*key[3::4]))
+        levels = len(key) // 6
+        u64, i64, i32 = ctypes.c_uint64 * levels, ctypes.c_longlong * levels, ctypes.c_int * levels
+        args = (u64(*key[0::6]), u64(*key[1::6]), i64(*key[2::6]), i64(*key[3::6]), i32(*key[4::6]),
+                i32(*key[5::6]))
         if len(_level_args) >= _LEVEL_ARGS_KEEP:
             _level_args.clear()
         _level_args[key] = args
     return args
 
 
-def klt_track_pyramid(pyr_prev, pyr_next, positions, guesses, win: int = 21, iters: int = 8):
-    """Track ``positions [N, 2]`` (full-resolution x, y) from ``pyr_prev`` to
-    ``pyr_next`` starting at ``guesses``; returns ``(positions, err)``.
+@torch.library.custom_op("eqvio_tpu_torch::klt_track_pyramid", mutates_args=(), device_types="cpu")
+def _klt_op(pyr_prev: list[torch.Tensor], pyr_next: list[torch.Tensor], positions: torch.Tensor,
+            guesses: torch.Tensor, win: int, iters: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The op's CPU implementation: the plain version, lanes and all."""
+    return klt_track_pyramid_plain(pyr_prev, pyr_next, positions, guesses, win, iters)
 
-    CPU tensors take the plain version.  CUDA tensors launch the kernel on
-    the current stream and count the launch in ``klt_track_pyramid.launches``;
-    a call during a CUDA graph capture only records the kernel into the
-    graph and is not counted (the graph's replays launch it; the profiler
-    counts those).
-    """
-    if positions.device.type == "cpu":
-        return klt_track_pyramid_plain(pyr_prev, pyr_next, positions, guesses, win, iters)
+
+@_klt_op.register_kernel("cuda")
+def _klt_cuda(pyr_prev, pyr_next, positions, guesses, win, iters):
+    """The op's CUDA implementation: one launch for every lane, level and
+    feature; raises on what the kernel does not take."""
     if positions.device.type != "cuda":
-        raise ValueError(f"unsupported device {positions.device}")
-    key = _check_cuda_inputs(pyr_prev, pyr_next, positions, guesses)
+        raise ValueError(f"positions on {positions.device}, pyramids on the card: all inputs must share a device")
+    lanes, key, copies = _check_cuda_inputs(pyr_prev, pyr_next, positions, guesses)
     if win * win > 1024 or win < 1 or iters < 1:
         raise ValueError(f"kernel takes 1 <= win*win <= 1024 and iters >= 1 (win={win}, iters={iters})")
-    n = positions.shape[0]
+    n = positions.shape[-2]
     out_pos = torch.empty_like(positions)
-    out_err = positions.new_empty(n)
-    if n == 0:
+    out_err = positions.new_empty(positions.shape[:-1])
+    if n * lanes == 0:
         return out_pos, out_err
     fn = _fn()
-    args = (*_level_arrays(key), len(pyr_prev), positions.data_ptr(), guesses.data_ptr(),
+    args = (*_level_arrays(key), len(pyr_prev), lanes, positions.data_ptr(), guesses.data_ptr(),
             out_pos.data_ptr(), out_err.data_ptr(), n, win, iters)
     dev = positions.device
     stream = _raw_stream(dev.index)
@@ -320,12 +368,52 @@ def klt_track_pyramid(pyr_prev, pyr_next, positions, guesses, win: int = 21, ite
     else:
         with torch.cuda.device(dev):
             rc = fn(*args, stream)
+    del copies  # enqueued: the stream orders any reuse of their memory after the kernel
     if rc != 0:
         raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {rc}")
     if not torch.cuda.is_current_stream_capturing():
         # under capture the call records a graph node and launches nothing
         klt_track_pyramid.launches += 1
     return out_pos, out_err
+
+
+@_klt_op.register_fake
+def _klt_fake(pyr_prev, pyr_next, positions, guesses, win, iters):
+    return torch.empty_like(positions), positions.new_empty(positions.shape[:-1])
+
+
+def _klt_vmap(info, in_dims, pyr_prev, pyr_next, positions, guesses, win, iters):
+    """vmap rule: each batched dim to the front, the unbatched arguments
+    expanded (a pyramid shared by every lane as a stride-0 view), and the op
+    called again on plain tensors, so one launch serves every lane."""
+    def front(t, d):
+        return t.unsqueeze(0).expand(info.batch_size, *t.shape) if d is None else t.movedim(d, 0)
+
+    def levels(pyr, dims):
+        dims = dims if isinstance(dims, (list, tuple)) else [dims] * len(pyr)
+        return [front(t, d) for t, d in zip(pyr, dims)]
+
+    prev_d, next_d, pos_d, guess_d = in_dims[:4]
+    out = _klt_op(levels(pyr_prev, prev_d), levels(pyr_next, next_d), front(positions, pos_d).contiguous(),
+                  front(guesses, guess_d).contiguous(), win, iters)
+    return out, (0, 0)
+
+
+torch.library.register_vmap(_klt_op, _klt_vmap)
+
+
+def klt_track_pyramid(pyr_prev, pyr_next, positions, guesses, win: int = 21, iters: int = 8):
+    """Track ``positions [*L, N, 2]`` (full-resolution x, y) from
+    ``pyr_prev`` to ``pyr_next`` (levels ``[*L, H_l, W_l]``) starting at
+    ``guesses``; returns ``(positions, err [*L, N])``.
+
+    CPU tensors take the plain version.  CUDA tensors launch the kernel
+    once for all lanes on the current stream and count the launch in
+    ``klt_track_pyramid.launches``; a call during a CUDA graph capture only
+    records the kernel into the graph and is not counted (the graph's
+    replays launch it; the profiler counts those).
+    """
+    return _klt_op(list(pyr_prev), list(pyr_next), positions, guesses, win, iters)
 
 
 klt_track_pyramid.launches = 0

@@ -6,7 +6,9 @@ benchmark scene (752x480, 4-level pyramids, win 21, 8 steps) with the
 scene's detected corners (N = 30, guesses = positions), and the same plus
 :func:`border_features` (38).  :func:`klt_case` with the racing proxy's
 reader and config gives the fisheye shape: equalised 640x480 frames and 40
-corners.  The timers need a CUDA device; nothing here runs at import.
+corners; :func:`klt_lanes_case` the sequence batch's shape: 8 lanes of the
+benchmark pair, each with its own pixel noise.  The timers need a CUDA
+device; nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..data import bench_scene
+from ..data import bench_scene, noised_lanes
 from ..frontend import build_pyramid, detect_features, equalize_histogram
 from ..io import bench_config, tracker_config_from_config
 
@@ -66,6 +68,24 @@ def klt_case(device, reader=None, frames: tuple[int, int] = (100, 101), config: 
     if f0.shape[1] >= 752:
         pair = torch.cat([main, torch.tensor(border_features(*f0.shape), device=device)]).contiguous()
     return KltCase(build_pyramid(f0, levels), build_pyramid(f1, levels), main, pair, win, ITERS, tcfg.max_error)
+
+
+def klt_lanes_case(device, reader=None, lanes: int = 8, frames: tuple[int, int] = (100, 101),
+                   noise_seed: int = 7) -> KltCase:
+    """The benchmark pair as ``lanes`` sequences of the batch of
+    ``app.run_opt.bench_batch_full_frame``: each lane the pair with its own
+    uint8 pixel noise (:func:`data.noised_lanes`), pyramid levels ``[B, H_l,
+    W_l]``, and every lane tracking the clean frame's detected corners
+    (positions ``[B, N, 2]``): one batched launch of ``lanes x N`` blocks."""
+    reader = bench_scene(8.0) if reader is None else reader
+    clean = klt_case(device, reader, frames)
+    pair = torch.as_tensor(noised_lanes(torch.stack([torch.as_tensor(reader.load_image_u8(i)) for i in frames]).numpy(),
+                                        lanes, noise_seed)).to(device).float() * (1.0 / 255.0)
+    levels = len(clean.pyr0)
+    pyrs = [[torch.stack(lv) for lv in zip(*[build_pyramid(pair[b, k], levels) for b in range(lanes)])]
+            for k in range(2)]
+    main = clean.main.expand(lanes, *clean.main.shape).contiguous()
+    return KltCase(pyrs[0], pyrs[1], main, main, clean.win, clean.iters, clean.max_error)
 
 
 def cuda_ms(fn, reps: int = 50) -> float:

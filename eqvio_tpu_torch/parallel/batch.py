@@ -13,16 +13,15 @@ writes outputs).  Their caller in the JAX package is the multi-host
 from __future__ import annotations
 
 import torch
-from torch.utils._pytree import tree_map
-
 from .. import filter as F
+from ..graph import broadcast_lanes
 
 
 def make_batched_states(settings: F.Settings, batch: int, capacity: int, dtype=torch.float32,
                         device="cpu") -> F.EqFState:
     """``batch`` freshly initialised filter states (leading axis = lane)."""
     one = F.init_state(settings, capacity, dtype, device)
-    return tree_map(lambda a: a.expand(batch, *a.shape).clone(), one)
+    return broadcast_lanes(one, batch)
 
 
 def batch_sim_step(settings: F.Settings, camera, suite=None):

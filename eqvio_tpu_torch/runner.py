@@ -12,9 +12,10 @@ replayed once per frame, with one synchronisation at the end; on ``cpu`` the
 same step runs directly.  ``batch=B`` and :func:`build_fleet_runner` run the
 one-sequence step over a leading lane axis with ``torch.func.vmap``, in the
 same single graph: the launches per frame do not grow with the lanes.
+``SimRunner.cost_analysis()`` counts a run's operations and bytes, as the
+JAX runner's ``run.cost_analysis()`` reads them from XLA.
 
-Not ported: the JAX runner's ``mesh=`` sharding and XLA ``cost_analysis``
-(``ROADMAP.md`` queue 1, items 10 and 3).
+Not ported: the JAX runner's ``mesh=`` sharding (``ROADMAP.md`` queue 1).
 """
 
 from __future__ import annotations
@@ -25,9 +26,10 @@ import numpy as np
 import torch
 from torch.utils._pytree import tree_map
 
+from . import cost
 from . import filter as F
 from .camera import PinholeCamera
-from .graph import GraphStep, select
+from .graph import GraphStep, broadcast_lanes, select
 from .lie import SE3
 from .runtime import configure_runtime, const
 from .sim import Simulator, first_match, gather_slots_compact, slot_tracker_init, slot_tracker_step_compact
@@ -287,14 +289,15 @@ class SimRunner:
         tracker0 = slot_tracker_init(capacity, device)
         if lanes is not None:
             if not seq["lanes"]:  # lanes of one sequence start from its one state
-                state0 = tree_map(lambda a: a.expand(lanes, *a.shape).clone(), state0)
-            tracker0 = tree_map(lambda a: a.expand(lanes, *a.shape).clone(), tracker0)
+                state0 = broadcast_lanes(state0, lanes)
+            tracker0 = broadcast_lanes(tracker0, lanes)
         self._carry0 = (state0, tracker0, torch.zeros((), dtype=torch.int64, device=device))
 
         frame0 = self._frame(torch.zeros(1, dtype=torch.int64, device=device))
         step = frame_fn
         if lanes is not None:  # absent inputs (None) have no lane axis
             step = torch.func.vmap(frame_fn, in_dims=(0, 0, _Frame(*(None if v is None else 0 for v in frame0))))
+        self._step_fn = step
         # one frame's outputs, to size the [T, ...] buffers
         probe = step(state0, tracker0, frame0)[2]
         self._bufs = [torch.empty((self.frames,) + tuple(o.shape), dtype=o.dtype, device=device) for o in probe]
@@ -328,6 +331,18 @@ class SimRunner:
             return fr._replace(k=lane(fr.k), dts=lane(fr.dts))
         # lanes of one sequence share every input
         return _Frame(*(IMU(*map(lane, v)) if isinstance(v, IMU) else lane(v) for v in fr))
+
+    def cost_analysis(self) -> dict:
+        """The whole run's operations and bytes under XLA's key names
+        (``flops``, ``bytes accessed``), as the JAX runner's
+        ``run.cost_analysis()`` gives them: one frame step (every lane)
+        counted by :func:`cost.count`, run eagerly on copies of the initial
+        carry, times the frames (each frame runs the same ops on the same
+        shapes), with ``flops_per_frame`` and ``bytes_per_frame`` beside."""
+        state, tracker, k = tree_map(torch.clone, self._carry0)
+        per = cost.count(self._step_fn, state, tracker, self._frame(k.reshape(1)))
+        return {"flops": per["flops"] * self.frames, "bytes accessed": per["bytes accessed"] * self.frames,
+                "flops_per_frame": per["flops"], "bytes_per_frame": per["bytes accessed"], "frames": self.frames}
 
     def replay(self, frames: int) -> None:
         """Advance every lane by ``frames`` frames (no synchronisation)."""

@@ -14,7 +14,7 @@ from typing import NamedTuple
 
 import torch
 
-from .lie import SE3, mv, se3_apply, se3_identity, se3_inv, se3_mul, so3_exp
+from .lie import SE3, mv, se3_identity, se3_inv, se3_mul, so3_exp
 
 GRAVITY = 9.80665
 SENSOR_DIM = 21
@@ -116,10 +116,9 @@ def integrate_system(state: VIOState, imu: IMU, dt: torch.Tensor) -> VIOState:
     cam_change_inv = se3_mul(
         se3_inv(sensor.camera_offset), se3_mul(se3_inv(change), sensor.camera_offset)
     )
-    new_landmarks = se3_apply(
-        SE3(cam_change_inv.R[..., None, :, :], cam_change_inv.x[..., None, :]),
-        state.landmarks,
-    )
+    # every landmark through one pose: p R^T + x, a plain product (a matvec
+    # broadcast over the landmarks copies the rotation per landmark under vmap)
+    new_landmarks = state.landmarks @ cam_change_inv.R.transpose(-1, -2) + cam_change_inv.x[..., None, :]
     return VIOState(
         sensor=VIOSensorState(new_bias, new_pose, new_velocity, sensor.camera_offset),
         landmarks=new_landmarks,

@@ -5,7 +5,8 @@ path on one GPU, in float32 (square-root covariance).
     python scripts/proxy_card.py [v101] [distractor] [mh03] [--out FILE]
 
 ``v101``: the 144 s V1_01 proxy with ``configs/config_v101_proxy.yaml``
-(gate 0.097 m, scale within 0.05 of 1, ``tests/test_proxy_slow.py``);
+(gate 0.038 m, 1.2x a fresh ``eqvio_tpu`` float64 run's 0.03166 m on the
+same scene, ``scripts/proxy_witness.py``; scale within 0.05 of 1);
 ``distractor``: the 45 s distractor scene with the same config, the
 epipolar gate on and off (the gate must beat gate-off and stay below
 0.15 m); ``mh03``: the 132 s MH_03 proxy (gate 0.056 m), as
@@ -27,7 +28,9 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-GATES = {"v101": 0.097, "mh03": 0.056, "distractor": 0.15}
+# V1_01: 1.2x today's eqvio_tpu float64 result (0.03166 m); the committed
+# 0.0804 m (tests/test_proxy_slow.py's 0.097 m gate) is not reproduced by it
+GATES = {"v101": 0.038, "mh03": 0.056, "distractor": 0.15}
 
 
 def main() -> None:

@@ -13,13 +13,12 @@ import pytest
 import torch
 
 from eqvio_tpu_torch.app import run_opt as R
-from eqvio_tpu_torch.data import DataServer, SyntheticASLReader, racing_proxy, shifted_texture_pair
+from eqvio_tpu_torch.data import SyntheticASLReader, noised_lanes, racing_proxy, shifted_texture_pair
 from eqvio_tpu_torch.frontend import build_pyramid, tracker
-from eqvio_tpu_torch.graph import WARMUP_STEPS
+from eqvio_tpu_torch.graph import WARMUP_STEPS, broadcast_lanes
 from eqvio_tpu_torch.io import bench_config, racing_proxy_config, template_config
 from eqvio_tpu_torch.kernels import klt as K
 from eqvio_tpu_torch.kernels import klt_bench as B
-from eqvio_tpu_torch.runtime import configure_runtime
 
 WIN, ITERS, LEVELS = 21, 8, 4
 
@@ -160,22 +159,13 @@ def test_tracker_step_on_card_matches_cpu(cuda_device):
 
 def fused_inputs(reader, config, frames: int, device: str, dtype=torch.float32):
     """The fused path's inputs for the first ``frames`` frames, assembled and
-    packed as ``run_dataset`` does: ``(uint8 images [T, H, W], meta [T, 8K+2],
-    attitude-initialised state, tracker, settings, tracker config, camera,
-    K)``, the images and meta on ``device``."""
-    dev, _ = configure_runtime(device)
-    settings, tcfg, camera, state, trk, win = R._setup(reader, config, dtype, dev)
-    imgs, metas = [], []
-    for state, stamp, im, window in R._fused_frames(DataServer(reader), state, win, dtype, dev,
-                                                    {"iter": 0.0, "asm": 0.0}):
-        row = np.zeros(R._meta_width(win))
-        R._pack_meta(row, window, stamp)
-        imgs.append(im)
-        metas.append(row)
-        if len(imgs) >= frames:
-            break
-    return (torch.as_tensor(np.stack(imgs)).to(dev), torch.as_tensor(np.stack(metas), dtype=dtype).to(dev),
-            state, trk, settings, tcfg, camera, win)
+    packed as ``run_dataset`` does (``collect_fused_inputs``): ``(uint8
+    images [T, H, W], meta [T, 8K+2], attitude-initialised state, tracker,
+    settings, tracker config, camera, K)``, the images and meta on ``device``."""
+    inp = R.collect_fused_inputs(reader, config, frames, dtype, device)
+    dev = torch.device(device)
+    return (torch.as_tensor(inp.imgs).to(dev), torch.as_tensor(inp.meta, dtype=dtype).to(dev),
+            inp.state, inp.tracker, inp.settings, inp.tcfg, inp.camera, inp.imu_window)
 
 
 def _fused_case(device, frames: int = 10, config: dict | None = None, dtype=torch.float32):
@@ -304,3 +294,135 @@ def test_sim_batch_lanes_match_single_on_card(cuda_device):
     assert batch.est_position.shape == (8,) + tuple(single.est_position.shape)
     for lane in batch.est_position:
         torch.testing.assert_close(lane, single.est_position, rtol=0, atol=1e-4)
+
+
+def _lane_pairs(device, lanes: int):
+    """``lanes`` noised copies of a moving frame pair of a small scene, as
+    ``[B, H_l, W_l]`` pyramid levels, and 24 features per lane."""
+    reader = SyntheticASLReader(end_time=2.0, width=320, height=240, frame_freq=10.0, num_points=300)
+    pair = torch.as_tensor(noised_lanes(np.stack([reader.load_image_u8(i) for i in (10, 11)]), lanes)).to(device)
+    pair = pair.float() / 255.0
+    pyrs = [[torch.stack(lv) for lv in zip(*[build_pyramid(pair[b, k], LEVELS) for b in range(lanes)])]
+            for k in range(2)]
+    pts = np.random.default_rng(5).uniform([30, 30], [290, 210], (24, 2))
+    pos = torch.tensor(pts, dtype=torch.float32, device=device).expand(lanes, 24, 2).contiguous()
+    return pyrs[0], pyrs[1], pos
+
+
+@pytest.mark.cuda
+def test_klt_batched_launch_matches_single_lanes_and_plain(cuda_device):
+    """One launch for 8 lanes: every lane bitwise its own single-lane
+    launch (each block does a single lane's arithmetic), within 2e-4 px of
+    the plain version with equal masks; so does the op under vmap."""
+    pyr0, pyr1, pos = _lane_pairs(cuda_device, 8)
+    before = K.klt_track_pyramid.launches
+    out_pos, out_err = K.klt_track_pyramid(pyr0, pyr1, pos, pos + 0.5, WIN, ITERS)
+    torch.cuda.synchronize()
+    assert K.klt_track_pyramid.launches == before + 1
+    for b in range(8):
+        one = K.klt_track_pyramid([t[b] for t in pyr0], [t[b] for t in pyr1], pos[b], pos[b] + 0.5, WIN, ITERS)
+        assert torch.equal(one[0], out_pos[b]) and torch.equal(one[1], out_err[b]), f"lane {b}"
+    pos_p, err_p = K.klt_track_pyramid_plain(pyr0, pyr1, pos, pos + 0.5, WIN, ITERS)
+    ok = err_p < 0.08
+    assert torch.equal(ok, out_err < 0.08) and int(ok.sum()) >= 8 * 20
+    torch.testing.assert_close(out_pos[ok], pos_p[ok], atol=2e-4, rtol=0)
+    vm = torch.func.vmap(lambda a, b, p: K.klt_track_pyramid(list(a), list(b), p, p + 0.5, WIN, ITERS))
+    v_pos, v_err = vm(tuple(pyr0), tuple(pyr1), pos)
+    assert torch.equal(v_pos, out_pos) and torch.equal(v_err, out_err)
+
+
+@pytest.mark.cuda
+def test_klt_one_lane_equals_single_lane_entry(cuda_device):
+    """B = 1 through the op, with and without a lane axis, is bitwise the
+    single-lane C entry (``klt_track_pyramid_f32``, the earlier releases'
+    entry point, kept beside the lanes entry)."""
+    import ctypes
+
+    pyr0, pyr1, pos = _lane_pairs(cuda_device, 1)
+    p0, p1, q = [t[0].contiguous() for t in pyr0], [t[0].contiguous() for t in pyr1], pos[0].contiguous()
+    fn = K.build.load(K._SOURCE).klt_track_pyramid_f32
+    fn.argtypes = [K._P, K._P, K._P, K._P, K._I, K._P, K._P, K._P, K._P, K._I, K._I, K._I, K._P]
+    out_pos, out_err = torch.empty_like(q), torch.empty(q.shape[0], device=cuda_device)
+    u64, i32 = ctypes.c_uint64 * LEVELS, ctypes.c_int * LEVELS
+    rc = fn(u64(*[t.data_ptr() for t in p0]), u64(*[t.data_ptr() for t in p1]), i32(*[t.shape[0] for t in p0]),
+            i32(*[t.shape[1] for t in p0]), LEVELS, q.data_ptr(), q.data_ptr(), out_pos.data_ptr(),
+            out_err.data_ptr(), q.shape[0], WIN, ITERS, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0
+    for got in (K.klt_track_pyramid(p0, p1, q, q, WIN, ITERS), K.klt_track_pyramid(pyr0, pyr1, pos, pos, WIN, ITERS)):
+        assert torch.equal(got[0].reshape(-1, 2), out_pos) and torch.equal(got[1].reshape(-1), out_err)
+
+
+@pytest.mark.cuda
+def test_klt_one_lane_equals_parent_kernel(cuda_device, tmp_path):
+    """B = 1 through the op is bitwise the kernel of the commit before the
+    lanes entry, built from a checkout of it: ``EQVIO_PARENT_CHECKOUT``
+    (default ``build/parent``, made with ``git archive <commit> | tar -x -C
+    build/parent``); skips without one."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    parent = os.environ.get("EQVIO_PARENT_CHECKOUT", os.path.join(repo, "build", "parent"))
+    if not os.path.isdir(os.path.join(parent, "eqvio_tpu_torch")):
+        pytest.skip(f"no parent checkout at {parent}")
+    pyr0, pyr1, pos = _lane_pairs(cuda_device, 1)
+    p0, p1, q = [t[0].cpu() for t in pyr0], [t[0].cpu() for t in pyr1], pos[0].cpu()
+    torch.save({"p0": p0, "p1": p1, "pos": q}, tmp_path / "in.pt")
+    code = ("import sys, torch; from eqvio_tpu_torch.kernels import klt as K; d = torch.load(sys.argv[1]); "
+            "c = lambda t: t.cuda(); o = K.klt_track_pyramid([c(t) for t in d['p0']], [c(t) for t in d['p1']], "
+            f"c(d['pos']), c(d['pos']), {WIN}, {ITERS}); torch.save([t.cpu() for t in o], sys.argv[2])")
+    res = subprocess.run([sys.executable, "-c", code, str(tmp_path / "in.pt"), str(tmp_path / "out.pt")], cwd=parent,
+                         capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-2000:]
+    ref = torch.load(tmp_path / "out.pt")
+    got = K.klt_track_pyramid(pyr0, pyr1, pos, pos, WIN, ITERS)
+    assert torch.equal(got[0][0].cpu(), ref[0]) and torch.equal(got[1][0].cpu(), ref[1])
+
+
+def _batch_case(device, lanes: int, frames: int = 6):
+    reader = SyntheticASLReader(end_time=2.0, width=320, height=240, frame_freq=10.0, num_points=300)
+    inp = R.collect_fused_inputs(reader, bench_config(), frames, torch.float32, "cuda")
+    imgs = torch.as_tensor(noised_lanes(inp.imgs, lanes)).to(device)
+    meta = torch.as_tensor(inp.meta, dtype=torch.float32).to(device)
+    args = (inp.tcfg, inp.settings, inp.settings.suite, inp.camera, inp.imu_window, torch.float32)
+    batch = R.BatchChunkRunner(*args, *broadcast_lanes((inp.state, inp.tracker), lanes), device)
+    return inp, args, imgs, meta, batch
+
+
+@pytest.mark.cuda
+def test_batch_runner_lanes_match_single_sequences(cuda_device):
+    """Four lanes with their own noised frames through one captured graph:
+    each lane's tracked ids equal its own single-sequence ChunkRunner run,
+    positions within 1e-4 m (float32; batched and single products round
+    apart); the KLT wrapper counts the eager warm-ups alone."""
+    inp, args, imgs, meta, batch = _batch_case(cuda_device, 4)
+    before = K.klt_track_pyramid.launches
+    outs = batch.run(imgs, meta.expand(4, *meta.shape))
+    assert batch.step.graph is not None and K.klt_track_pyramid.launches == before + WARMUP_STEPS
+    N = inp.tcfg.max_features
+    for b in range(4):
+        one = R.ChunkRunner(*args, inp.state, inp.tracker, cuda_device).run(imgs[b], meta)
+        assert torch.equal(outs[b, :, 34 + 7 * N:], one[:, 34 + 7 * N:]), f"lane {b} ids or masks"
+        torch.testing.assert_close(outs[b, :, 9:12], one[:, 9:12], atol=1e-4, rtol=0)
+    assert bool(torch.isfinite(outs).all())
+
+
+@pytest.mark.cuda
+def test_batch_graph_launches_one_klt_per_frame(cuda_device):
+    """Under the profiler, each replay of the batched graph runs one
+    ``klt_pyramid_kernel`` for all lanes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _, _, imgs, meta, batch = _batch_case(cuda_device, 8)
+    meta_b = meta.expand(8, *meta.shape)
+    batch.run(imgs[:, :2], meta_b[:, :2])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        batch.run(imgs[:, 2:6], meta_b[:, 2:6])
+        torch.cuda.synchronize()
+    names = [ev.name for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
+    launches = [ev.name for ev in prof.events() if ev.name == "cudaGraphLaunch"]
+    assert len(launches) == 4
+    assert sum("klt_pyramid_kernel" in n for n in names) == 4
