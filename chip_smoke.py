@@ -129,6 +129,27 @@ Phases, each printing one line; any failure exits nonzero before the result:
    lane's, the batched KLT's time in the graph, and the counted operations
    and bytes per batched frame.
 
+12. files: the file path on ``cuda`` in float32.  (a) Phase 10's MH_03
+   reader written as an ASL tree (``data.generate_mh03_proxy``: 2,635 PNG
+   frames) and run through ``app.batch.run_batch`` (no figures, no timing,
+   a checkpoint every 1,024 frames) with (c) the racing proxy's first 5 s
+   written as a UZH-FPV tree (``generate_racing_proxy``, ``gt_format:
+   uzhfpv``): MH_03's IMUState.csv must equal phase 10's in-memory run's
+   (which phase 10 writes for this), its ``results.yaml`` RMSE <= 0.056 m
+   with the scale within 0.05 of 1, ``summary.yaml`` must roll up both
+   sequences; the KLT wrapper, zeroed first, counts the eager warm-ups and
+   the counted step of each run, and each run's graph launches, less those
+   that timed its first chunk, are its frames padded to whole chunks (the
+   graph holds one KLT, as phase 10's trace of it shows).  (b) A run of the
+   tree stopped at its checkpoint at frame 1,024 and a run resumed from
+   it: their IMUState.csv rows, stitched, equal (a)'s.  (d) The benchmark
+   scene's first 100 frames written into a bag with ``data.BagWriter`` and
+   run with ``mode="rosbag"``, against the same frames' ASL tree: the same
+   tracked ids, positions within 1e-6 m.  Prints the decoder each run used,
+   the decoding thread's ms/frame and the main thread's ``iter_wait`` beside
+   phase 10's, frames/s and the checkpoint's ms per save.  The trees go to
+   ``build/smoke_files`` and are removed after the phase.
+
 Every fused run also counts one eager frame step's operations and bytes
 (``cost.py``; the summary's ``flops_per_frame``): the KLT wrapper counts that
 step's launch beside the warm-ups before each capture.
@@ -202,6 +223,13 @@ BATCH_PX_TOL = 1e-3
 BATCH_WINDOW = 16  # traced batched frames
 BATCH_LAUNCH_SLACK = 64  # device events per batched frame above one lane's, as SIM_LAUNCH_SLACK
 DENSE_PROFILE_DIR = os.path.join(PROFILE_DIR, "dense")
+# phase 12: the file path
+FILES_DIR = os.path.join(HERE, "build", "smoke_files")  # build/ is git-ignored; removed after the phase
+MH03_OUT_DIR = os.path.join(FILES_DIR, "mh03_memory")  # phase 10's CSVs, held against phase 12's
+FILES_CKPT_EVERY = 1024
+FILES_RACING_SECONDS = 5.0
+BAG_FRAMES = 100
+BAG_TOL_M = 1e-6
 
 
 def fail(msg: str) -> None:
@@ -580,6 +608,9 @@ def phase_mh03(mh03, cfg_mh03, build_s, card) -> dict:
     from eqvio_tpu_torch.graph import WARMUP_STEPS
     from eqvio_tpu_torch.kernels import klt as K
 
+    import shutil
+
+    shutil.rmtree(FILES_DIR, ignore_errors=True)  # a checkpoint left there would be resumed in phase 12
     n = FUSED_FRAMES
     K.klt_track_pyramid.launches = 0
     _, eager_m = run_dataset(mh03, cfg_mh03, device="cuda", chunk_size=1, limit_frames=n)
@@ -590,7 +621,7 @@ def phase_mh03(mh03, cfg_mh03, build_s, card) -> dict:
     K.klt_track_pyramid.launches = 0
     t0 = time.perf_counter()
     state_m, fused_m = run_dataset(mh03, cfg_mh03, device="cuda", chunk_size=CHUNK, profile_dir=MH03_PROFILE_DIR,
-                                   profile_chunk=PROFILE_CHUNK)
+                                   profile_chunk=PROFILE_CHUNK, output_dir=MH03_OUT_DIR)
     torch.cuda.synchronize()
     wall_m = time.perf_counter() - t0
     warmup_m = K.klt_track_pyramid.launches
@@ -635,7 +666,178 @@ def phase_mh03(mh03, cfg_mh03, build_s, card) -> dict:
           f"{len(events_m) / CHUNK:.1f} device events per frame; largest by device ms/frame: "
           f"{largest_kernels(events_m, CHUNK, 8)} ({card})", flush=True)
     return {"launches": launches_m, "chunk": len(klt_m), "warmup": warmup_m,
-            "graph_replay_ms": sum(klt_m) / len(klt_m) / 1e3}
+            "graph_replay_ms": sum(klt_m) / len(klt_m) / 1e3, "ms_per_frame": ms_m,
+            "device_ms_per_frame": fused_m["device_ms_per_frame"], "rmse": rmse_m,
+            "iter_wait": fused_m["host_ms_per_frame"]["iter_wait"]}
+
+
+def _csv_rows(path: str) -> list:
+    with open(path) as f:
+        return f.read().splitlines()
+
+
+def phase_files(mh03, cfg_mh03, mh, card) -> dict:
+    """Phase 12: the file path.  (a) The MH_03 proxy written as an ASL tree
+    from phase 10's reader and run through ``app.batch.run_batch`` with a
+    UZH-FPV tree of the racing proxy's first seconds (c): its IMUState.csv
+    against phase 10's, its results.yaml against the gate, the roll-up of
+    both; (b) an interrupted run to the first checkpoint and its resumed
+    rest, stitched against (a); (d) the benchmark scene's first frames in a
+    bag against the same frames' ASL tree.  Returns the KLT's counts."""
+    import shutil
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from eqvio_tpu_torch.app import run_opt as R
+    from eqvio_tpu_torch.app.batch import run_batch
+    from eqvio_tpu_torch.data import BagWriter, bench_scene, generate_mh03_proxy, generate_racing_proxy
+    from eqvio_tpu_torch.data import write_asl_tree
+    from eqvio_tpu_torch.graph import WARMUP_STEPS
+    from eqvio_tpu_torch.io import bench_config
+    from eqvio_tpu_torch.kernels import klt as K
+
+    eager = WARMUP_STEPS + R.COST_STEPS  # the wrapper's launches per fused run: warm-ups and the counted step
+    mh_dir, rc_dir = os.path.join(FILES_DIR, "mh03"), os.path.join(FILES_DIR, "racing")
+    t0 = time.perf_counter()
+    generate_mh03_proxy(mh_dir, end_time=MH03_SECONDS, reader=mh03)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    generate_racing_proxy(rc_dir, end_time=FILES_RACING_SECONDS)
+    racing_s = time.perf_counter() - t0
+    n_mh = len(mh03.images.stamps)
+    n_png = len(os.listdir(os.path.join(mh_dir, "mav0", "cam0", "data")))
+    mb = sum(e.stat().st_size for e in os.scandir(os.path.join(mh_dir, "mav0", "cam0", "data"))) / 1e6
+    if n_png != n_mh:
+        fail(f"files: the MH_03 tree holds {n_png} frames, the reader {n_mh}")
+
+    # (a) + (c): one batch of the two trees, float32 on the card, no figures
+    listing = os.path.join(FILES_DIR, "datasets.yaml")
+    with open(listing, "w") as f:
+        yaml.safe_dump({"datasets": [
+            {"name": "mh03_proxy", "location": mh_dir, "mode": "asl", "config": os.path.join(HERE, "configs", "config_mh03_proxy.yaml")},
+            {"name": "racing_proxy", "location": rc_dir, "mode": "uzhfpv",
+             "camera": os.path.join(rc_dir, "camchain-imucam.yaml"),
+             "groundtruth": os.path.join(rc_dir, "groundtruth.txt"), "gt_format": "uzhfpv",
+             "config": os.path.join(HERE, "configs", "config_racing_proxy.yaml")}]}, f)
+    out = os.path.join(FILES_DIR, "batch")
+    runs = {}
+    K.klt_track_pyramid.launches = 0
+    t0 = time.perf_counter()
+    summary = run_batch(listing, os.path.join(HERE, "configs", "config_mh03_proxy.yaml"), out, device="cuda",
+                        plots=False, timing=False,
+                        checkpoint_every=FILES_CKPT_EVERY, runs=runs)
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    launches = K.klt_track_pyramid.launches
+    run_a, run_c = runs["mh03_proxy"], runs["racing_proxy"]
+    # graph launches of the run's frames: all launches less those that timed the first chunk from snapshots
+    replays = {name: r["graph"]["replays"] - r["graph"]["timing_replays"] for name, r in runs.items()}
+    for name, r in runs.items():
+        padded = -(-r["frames"] // CHUNK) * CHUNK
+        if replays[name] != padded:
+            fail(f"files: {name}: {replays[name]} graph launches for {r['frames']} frames in chunks of {CHUNK} "
+                 f"({r['graph']})")
+    if launches != len(runs) * eager:
+        fail(f"files: the KLT wrapper counted {launches} eager launches in the batch, not {eager} per sequence")
+    if run_a["frames"] != n_mh or not run_a["healthy"]:
+        fail(f"files: MH_03 from files ran {run_a['frames']} of {n_mh} frames, healthy {run_a['healthy']}")
+    rows_a = _csv_rows(os.path.join(out, "mh03_proxy", "IMUState.csv"))
+    rows_mem = _csv_rows(os.path.join(MH03_OUT_DIR, "IMUState.csv"))
+    if rows_a != rows_mem:
+        bad = next(i for i, (x, y) in enumerate(zip(rows_a + [""], rows_mem + [""])) if x != y)
+        fail(f"files: IMUState.csv from files parts from phase 10's in-memory run at row {bad}: {rows_a[bad:bad + 1]} "
+             f"against {rows_mem[bad:bad + 1]} ({len(rows_a)} and {len(rows_mem)} rows)")
+    with open(os.path.join(out, "mh03_proxy", "results.yaml")) as f:
+        res_a = yaml.safe_load(f)
+    rmse_a, scale_a = res_a["position (m)"]["rmse"], res_a["scale"]
+    if not rmse_a <= MH03_GATE_M or not abs(scale_a - 1.0) <= MH03_SCALE_TOL:
+        fail(f"files: MH_03 results.yaml position RMSE {rmse_a} m (gate {MH03_GATE_M}), scale {scale_a}")
+    with open(os.path.join(out, "summary.yaml")) as f:
+        roll = yaml.safe_load(f)
+    if roll["completed"] != 2 or summary["completed"] != 2 or not {"mh03_proxy", "racing_proxy"} <= set(roll):
+        fail(f"files: summary.yaml rolls up {roll['completed']} sequences ({sorted(roll)}), not 2")
+    if not run_c["healthy"] or run_c["decoder"] != run_a["decoder"]:
+        fail(f"files: racing from files: healthy {run_c['healthy']}, decoder {run_c['decoder']}")
+
+    # (b) an interrupted run to the first checkpoint, then the rest resumed from it
+    b1, b2 = os.path.join(FILES_DIR, "part_a"), os.path.join(FILES_DIR, "part_b")
+    _, sum_b1 = R.run_dataset(mh_dir, cfg_mh03, output_dir=b1, device="cuda", limit_frames=FILES_CKPT_EVERY,
+                              checkpoint_every=FILES_CKPT_EVERY)
+    ckpt = os.path.join(b1, "checkpoint.npz")
+    _, sum_b2 = R.run_dataset(mh_dir, cfg_mh03, output_dir=b2, device="cuda", resume=ckpt)
+    with np.load(ckpt) as z:
+        at = json.loads(bytes(z["cursor_json"].tobytes()).decode())["frames"]
+    rows_b1, rows_b2 = _csv_rows(os.path.join(b1, "IMUState.csv")), _csv_rows(os.path.join(b2, "IMUState.csv"))
+    stitched = rows_b1[:1 + at] + rows_b2[1:]
+    if at != FILES_CKPT_EVERY or sum_b2["frames"] != n_mh or stitched != rows_a:
+        bad = next((i for i, (x, y) in enumerate(zip(stitched, rows_a)) if x != y), min(len(stitched), len(rows_a)))
+        fail(f"files: the resumed run (checkpoint at frame {at}, {sum_b2['frames']} frames) parts from the "
+             f"uninterrupted one at row {bad} of {len(rows_a)}")
+    ms_save = sum_b1["checkpoint"]["ms_per_save"]
+
+    # (d) the benchmark scene's first frames as a bag, against the same frames' ASL tree
+    scene = bench_scene(SCENE_SECONDS)
+    asl_dir, bag_dir = os.path.join(FILES_DIR, "bench_asl"), os.path.join(FILES_DIR, "bench_bag")
+    write_asl_tree(scene, asl_dir)
+    os.makedirs(bag_dir, exist_ok=True)
+    last = scene.images.stamps[BAG_FRAMES - 1]
+    bag = BagWriter(os.path.join(bag_dir, "seq.bag"))
+    for t, g, a in zip(scene.imu.stamps, scene.imu.gyr, scene.imu.acc):
+        if t <= last:
+            bag.write_imu(t, g, a)
+    for t, frame in zip(scene.images.stamps[:BAG_FRAMES], scene.frames):
+        bag.write_image(t, frame / 255.0)
+    bag.close()
+    cam = scene.camera
+    with open(os.path.join(bag_dir, "intrinsics.yaml"), "w") as f:
+        yaml.safe_dump({"resolution": list(cam.resolution), "intrinsics": list(cam.intrinsics),
+                        "distortion_coefficients": list(cam.distortion),
+                        "T_BS": {"data": cam.T_BS.reshape(-1).tolist()}}, f)
+    cfg_b = bench_config()
+    K.klt_track_pyramid.launches = 0
+    _, sum_bag = R.run_dataset(os.path.join(bag_dir, "seq.bag"), cfg_b, mode="rosbag", device="cuda")
+    launches_bag = K.klt_track_pyramid.launches
+    _, sum_asl = R.run_dataset(asl_dir, cfg_b, mode="asl", device="cuda", limit_frames=BAG_FRAMES)
+    if sum_bag["frames"] != BAG_FRAMES or sum_asl["frames"] != BAG_FRAMES or launches_bag != eager:
+        fail(f"files: bag {sum_bag['frames']} frames, ASL {sum_asl['frames']} (expected {BAG_FRAMES}); KLT wrapper "
+             f"{launches_bag} eager launches in the bag run (expected {eager})")
+    if not np.array_equal(sum_bag["feature_ids"], sum_asl["feature_ids"]):
+        bad = int(np.argmax((sum_bag["feature_ids"] != sum_asl["feature_ids"]).any(1)))
+        fail(f"files: the bag run's tracked ids differ from the ASL run's from frame {bad}")
+    d_bag = float(np.abs(sum_bag["positions"] - sum_asl["positions"]).max())
+    if not d_bag <= BAG_TOL_M:
+        fail(f"files: bag against ASL: positions {d_bag} m apart (limit {BAG_TOL_M})")
+
+    host = run_a["host_ms_per_frame"]
+    ms_a = (run_a["frames"] / run_a["fps"] - run_a["setup_s"]) * 1e3 / run_a["frames"]  # without the capture
+    print(f"files: MH_03 proxy written as an ASL tree ({n_png} PNG frames of 752x480, {mb:.1f} MB) from phase 10's "
+          f"reader in {write_s:.1f} s, the racing proxy's first {FILES_RACING_SECONDS:.0f} s as a UZH-FPV tree "
+          f"({run_c['frames']} frames of 640x480) in {racing_s:.1f} s; app.batch on cuda f32 (square-root, no "
+          f"figures, checkpoint every {FILES_CKPT_EVERY}) in {batch_s:.1f} s ({card})", flush=True)
+    print(f"files: (a) MH_03 from files: {run_a['frames']} frames, {ms_a:.3f} ms/frame without the "
+          f"{run_a['setup_s']:.2f} s of capture ({1e3 / run_a['fps']:.3f} with it), device "
+          f"{run_a['device_ms_per_frame']} ms/frame (phase 10 in memory: {mh['ms_per_frame']:.3f} ms/frame without "
+          f"the capture and the traced chunk, device {mh['device_ms_per_frame']} ms/frame); decoder "
+          f"{run_a['decoder']}, {run_a['decode_ms_per_frame']} ms/frame "
+          f"on the decoding thread; main thread iter_wait {host['iter_wait']} ms/frame (in memory "
+          f"{mh['iter_wait']}), upload {host['upload']}, dispatch {host['dispatch']}; IMUState.csv identical to "
+          f"phase 10's ({len(rows_a) - 1} rows); results.yaml RMSE {rmse_a:.4f} m (gate {MH03_GATE_M}), scale "
+          f"{scale_a:.4f}; {run_a['checkpoint']['saves']} checkpoints at "
+          f"{run_a['checkpoint']['ms_per_save']} ms each; graph launches {replays}, KLT wrapper {launches} eager "
+          f"launches ({eager} per sequence) ({card})", flush=True)
+    print(f"files: (b) interrupted at the checkpoint of frame {at} ({ms_save} ms to save), resumed for "
+          f"{sum_b2['frames'] - at} frames: the stitched IMUState.csv equals (a)'s; (c) racing from files: "
+          f"{run_c['frames']} frames, decoder {run_c['decoder']} {run_c['decode_ms_per_frame']} ms/frame, RMSE "
+          f"{roll['racing_proxy']['position (m)']['rmse']:.4f} m; summary.yaml: {roll['completed']} sequences, mean "
+          f"RMSE {roll['mean position rmse']:.4f} m; (d) rosbag: {BAG_FRAMES} frames of the benchmark scene, decoder "
+          f"{sum_bag['decoder']} {sum_bag['decode_ms_per_frame']} ms/frame, ids equal to the ASL tree's run "
+          f"(decoder {sum_asl['decoder']} {sum_asl['decode_ms_per_frame']} ms/frame), positions within {d_bag:.3g} m "
+          f"({card})", flush=True)
+    shutil.rmtree(FILES_DIR, ignore_errors=True)
+    return {"launches": launches, "replays": replays["mh03_proxy"], "frames": run_a["frames"],
+            "decoder": run_a["decoder"]}
 
 
 def phase_batch(card) -> dict:
@@ -1195,6 +1397,9 @@ def main() -> None:
     # ---- 11. the tracker-inclusive sequence batch ----------------------------
     bt = phase_batch(card)
 
+    # ---- 12. the file path: trees, app.batch, resume, rosbag ------------------
+    fl = phase_files(mh03, cfg_mh03, mh, card)
+
     print(json.dumps({"kernels": [{
         "name": "klt_track_pyramid",
         "route": "cuda",
@@ -1242,6 +1447,25 @@ def main() -> None:
         "launches_fused_chunk": mh["chunk"],
         "fused_chunk_frames": CHUNK,
         "launches_fused_warmup": mh["warmup"],
+        "max_abs_err": err_mh03,
+        "ms": mt["ms"],
+        "graph_replay_ms": mh["graph_replay_ms"],
+        "graph_ms": mt["graph_ms"],
+        "plain_ms": mt["plain_ms"],
+        "bound_ms": mt["bound_ms"],
+        "bound_by": mt["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "klt_track_pyramid",
+        "shape": f"MH_03 from files through app.batch: {mt['shape']}",
+        "route": "cuda",
+        "source": "eqvio_tpu_torch/csrc/klt_cuda.cu",
+        "replaces": "eqvio_tpu/frontend/pallas_klt.py:106",
+        "launches": fl["launches"],
+        "graph_launches": fl["replays"],
+        "frames": fl["frames"],
+        "klt_per_graph_launch": 1,  # phase 10's traced chunk of the same graph
+        "decoder": fl["decoder"],
         "max_abs_err": err_mh03,
         "ms": mt["ms"],
         "graph_replay_ms": mh["graph_replay_ms"],

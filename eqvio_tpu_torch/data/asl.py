@@ -40,6 +40,8 @@ class GroundTruth(NamedTuple):
 
 
 class ASLDatasetReader:
+    decoder = "pil"  # what decodes the frames (data.server.DataServer.decoder)
+
     def __init__(self, dataset_dir: str, camera_yaml: str | None = None):
         self.base = os.path.join(dataset_dir, "mav0")
         self.imu = self._read_imu()

@@ -1,21 +1,28 @@
-"""In-memory synthetic scenes (counterpart of
-``eqvio_tpu/data/synthetic.py``'s ``generate_asl_dataset``,
-``generate_uzhfpv_dataset`` and its proxy scenes).
+"""Synthetic scenes in memory and as dataset trees (counterpart of
+``eqvio_tpu/data/synthetic.py``).
 
 :class:`SyntheticASLReader` and :class:`SyntheticUZHFPVReader` render the
 simulator's world points into frames and serve them, with IMU rows and ground
 truth, through the dataset readers' interface (``camera``, ``imu``,
-``images``, ``groundtruth``, ``load_image_u8``) without writing files, so
-they need neither PIL nor PyYAML.  Every value passes through the same
-quantisation as the JAX package's file round trip (integer-nanosecond or
-9-decimal stamps, 9-decimal IMU and ground-truth rows, uint8 frames, the
-camchain's inverted ``T_cam_imu``), and the random draws come in the same
-order (IMU noise, then each frame's render noise), so for the same arguments
-they serve what ``ASLDatasetReader`` and ``UZHFPVDatasetReader`` read back
-from the JAX generators' trees.
+``images``, ``groundtruth``, ``load_image_u8``) without writing files.  Every
+value passes through the same quantisation as the JAX package's file round
+trip (integer-nanosecond or 9-decimal stamps, 9-decimal IMU and
+ground-truth rows, uint8 frames, the camchain's inverted ``T_cam_imu``), and
+the random draws come in the same order (IMU noise, then each frame's render
+noise), so for the same arguments they serve what ``ASLDatasetReader`` and
+``UZHFPVDatasetReader`` read back from the JAX generators' trees.
+
+:func:`write_asl_tree` and :func:`write_uzhfpv_tree` write such a scene as
+that tree: the CSV and YAML text of the JAX generators byte for byte, the
+frames as PNG files.  ``generate_asl_dataset``, ``generate_uzhfpv_dataset``
+and the proxy generators build the scene and write it, as the JAX
+generators do.
 """
 
 from __future__ import annotations
+
+import os
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -113,6 +120,8 @@ class SyntheticASLReader:
     optional radial-tangential distortion, IMU noise with bias walks, a
     ground-truth rate of its own, walls and distractor blobs."""
 
+    decoder = "memory"
+
     def __init__(self, end_time: float = 5.0, imu_freq: float = 200.0, frame_freq: float = 20.0,
                  width: int = 320, height: int = 240, num_points: int = 400, seed: int = 0,
                  kind: str = "wave", intrinsics: tuple | None = None, distortion: tuple | None = None,
@@ -135,6 +144,7 @@ class SyntheticASLReader:
         imu_times = np.arange(t0, end_time, 1.0 / imu_freq)
         gyr, acc = _noisy_imu(sim, imu_times, imu_freq, imu_noise, rng)
         self.imu = IMUSeq(_ns_stamps(imu_times), _csv9(gyr), _csv9(acc))
+        self.sim, self.frame_freq = sim, frame_freq
 
         T_BS = np.eye(4)
         T_BS[:3, :3] = sim.camera_offset.R.numpy()
@@ -148,6 +158,9 @@ class SyntheticASLReader:
                                [f"{int(t * 1e9)}.png" for t in frame_times])
 
         gt_times = np.arange(t0, end_time, 1.0 / (gt_freq or frame_freq))
+        # the integer-nanosecond stamps of the tree's CSVs
+        self.stamps_ns = {name: [int(t * 1e9) for t in times]
+                          for name, times in (("imu", imu_times), ("frames", frame_times), ("gt", gt_times))}
         pose, vel = sim.true_pose_velocity(torch.as_tensor(gt_times, dtype=f64))
         q = rotation_to_quaternion(pose.R.numpy())
         v_inertial = mv(pose.R, vel).numpy()
@@ -162,6 +175,8 @@ class SyntheticASLReader:
 class SyntheticUZHFPVReader:
     """The synthetic scene of ``generate_uzhfpv_dataset`` (equidistant
     fisheye, optional IMU noise), served from memory."""
+
+    decoder = "memory"
 
     def __init__(self, end_time: float = 4.0, imu_freq: float = 200.0, frame_freq: float = 10.0,
                  width: int = 320, height: int = 240, num_points: int = 300, seed: int = 0,
@@ -192,6 +207,7 @@ class SyntheticUZHFPVReader:
         T_BS[:3, 3] = sim.camera_offset.x.numpy()
         self.camera = CameraInfo("equidistant", (fx, fy, cx, cy), dist, (width, height),
                                  np.linalg.inv(np.linalg.inv(T_BS)))
+        self.sim, self.T_cam_imu = sim, np.linalg.inv(T_BS)
 
         frame_times = np.arange(t0 + 1.0 / frame_freq, end_time, 1.0 / frame_freq)
         self.frames = _render_frames(sim, cam, frame_times, width, height, rng, amp, blob_w)
@@ -269,6 +285,176 @@ def bench_scene(end_time: float = 8.0) -> SyntheticASLReader:
                               height=480, num_points=600, seed=4, kind="room")
 
 
+def _f9(values) -> str:
+    return ",".join(f"{v:.9f}" for v in values)
+
+
+def _write_pngs(frames, paths, workers: int = 8) -> None:
+    """uint8 frames as 8-bit grayscale PNG files (zlib level 1; PIL's encoder
+    runs outside the interpreter lock, so threads overlap it)."""
+    from PIL import Image
+
+    def save(frame, path):
+        Image.fromarray(frame).save(path, compress_level=1)
+
+    with ThreadPoolExecutor(workers) as pool:
+        for fut in [pool.submit(save, f, p) for f, p in zip(frames, paths)]:
+            fut.result()
+
+
+def write_asl_tree(reader: SyntheticASLReader, out_dir: str) -> None:
+    """The scene of ``reader`` as an ASL (EuRoC) tree under ``out_dir``:
+    ``mav0/imu0/data.csv``, ``mav0/cam0/{data.csv, sensor.yaml, data/*.png}``
+    and ``mav0/state_groundtruth_estimate0/data.csv``, in the JAX
+    generator's text."""
+    base = os.path.join(out_dir, "mav0")
+    for sub in ("imu0", "cam0/data", "state_groundtruth_estimate0"):
+        os.makedirs(os.path.join(base, sub), exist_ok=True)
+    ns = reader.stamps_ns
+    with open(os.path.join(base, "imu0", "data.csv"), "w") as f:
+        f.write("#timestamp [ns],w_x,w_y,w_z,a_x,a_y,a_z\n")
+        for t, g, a in zip(ns["imu"], reader.imu.gyr, reader.imu.acc):
+            f.write(f"{t}," + _f9([*g, *a]) + "\n")
+    cam = reader.camera
+    (fx, fy, cx, cy), (width, height) = cam.intrinsics, cam.resolution
+    with open(os.path.join(base, "cam0", "sensor.yaml"), "w") as f:
+        f.write(
+            "sensor_type: camera\n"
+            f"T_BS:\n  rows: 4\n  cols: 4\n  data: {cam.T_BS.reshape(-1).tolist()}\n"
+            f"rate_hz: {reader.frame_freq}\n"
+            f"resolution: [{width}, {height}]\n"
+            "camera_model: pinhole\n"
+            f"intrinsics: [{fx}, {fy}, {cx}, {cy}]\n"
+            "distortion_model: radial-tangential\n"
+            f"distortion_coefficients: {list(cam.distortion)}\n"
+        )
+    with open(os.path.join(base, "cam0", "data.csv"), "w") as f:
+        f.write("#timestamp [ns],filename\n")
+        for t, name in zip(ns["frames"], reader.images.paths):
+            f.write(f"{t},{name}\n")
+    _write_pngs(reader.frames, [os.path.join(base, "cam0", "data", name) for name in reader.images.paths])
+    gt = reader.groundtruth
+    with open(os.path.join(base, "state_groundtruth_estimate0", "data.csv"), "w") as f:
+        f.write("#timestamp, p_RS_R_x [m], p_RS_R_y [m], p_RS_R_z [m], "
+                "q_RS_w [], q_RS_x [], q_RS_y [], q_RS_z [], "
+                "v_RS_R_x [m s^-1], v_RS_R_y [m s^-1], v_RS_R_z [m s^-1]\n")
+        for t, p, q, v in zip(ns["gt"], gt.position, gt.quaternion, gt.velocity):
+            f.write(f"{t}," + _f9([*p, *q, *v]) + "\n")
+
+
+def write_uzhfpv_tree(reader: SyntheticUZHFPVReader, out_dir: str) -> None:
+    """The scene of ``reader`` as a UZH-FPV tree under ``out_dir``:
+    ``imu.txt``, ``left_images.txt``, ``camchain-imucam.yaml`` (equidistant,
+    ``T_cam_imu``), ``img/*.png`` and ``groundtruth.txt``, in the JAX
+    generator's text."""
+    import yaml
+
+    os.makedirs(os.path.join(out_dir, "img"), exist_ok=True)
+    with open(os.path.join(out_dir, "imu.txt"), "w") as f:
+        f.write("# id timestamp wx wy wz ax ay az\n")
+        for i, (t, g, a) in enumerate(zip(reader.imu.stamps, reader.imu.gyr, reader.imu.acc)):
+            f.write(f"{i} {t:.9f} " + _f9([*g, *a]).replace(",", " ") + "\n")
+    cam = reader.camera
+    with open(os.path.join(out_dir, "camchain-imucam.yaml"), "w") as f:
+        yaml.safe_dump({"cam0": {
+            "camera_model": "pinhole",
+            "distortion_model": "equidistant",
+            "intrinsics": list(cam.intrinsics),
+            "distortion_coeffs": list(cam.distortion),
+            "resolution": list(cam.resolution),
+            "T_cam_imu": reader.T_cam_imu.tolist(),
+        }}, f)
+    with open(os.path.join(out_dir, "left_images.txt"), "w") as f:
+        f.write("# id timestamp image_name\n")
+        for i, (t, name) in enumerate(zip(reader.images.stamps, reader.images.paths)):
+            f.write(f"{i} {t:.9f} {name}\n")
+    _write_pngs(reader.frames, [os.path.join(out_dir, name) for name in reader.images.paths])
+    gt = reader.groundtruth
+    with open(os.path.join(out_dir, "groundtruth.txt"), "w") as f:
+        f.write("# id timestamp tx ty tz qx qy qz qw\n")
+        for i, (t, p, q) in enumerate(zip(gt.stamps, gt.position, gt.quaternion)):
+            f.write(f"{i} {t:.9f} " + _f9([*p, q[1], q[2], q[3], q[0]]).replace(",", " ") + "\n")
+
+
+def generate_asl_dataset(out_dir: str, **scene) -> Simulator:
+    """Write the :class:`SyntheticASLReader` scene of ``scene`` (its keyword
+    arguments) as an ASL tree under ``out_dir``; returns its simulator."""
+    reader = SyntheticASLReader(**scene)
+    write_asl_tree(reader, out_dir)
+    return reader.sim
+
+
+def generate_uzhfpv_dataset(out_dir: str, **scene) -> Simulator:
+    """Write the :class:`SyntheticUZHFPVReader` scene of ``scene`` as a
+    UZH-FPV tree under ``out_dir``; returns its simulator."""
+    reader = SyntheticUZHFPVReader(**scene)
+    write_uzhfpv_tree(reader, out_dir)
+    return reader.sim
+
+
+def _motion_stats(sim: Simulator, end_time: float) -> dict:
+    """Duration, path length, mean and largest speed and angular rate of the
+    simulator's trajectory up to ``end_time``."""
+    x, t, R = sim.poses.x.numpy(), sim.times.numpy(), sim.poses.R.numpy()
+    seg = np.linalg.norm(np.diff(x, axis=0), axis=1)
+    speed = seg / np.diff(t)
+    dR = np.einsum("tij,tik->tjk", R[:-1], R[1:])  # R_k^T R_{k+1}
+    ang_rate = np.arccos(np.clip((np.trace(dR, axis1=1, axis2=2) - 1) / 2, -1, 1)) / np.diff(t)
+    mask = t[:-1] < end_time
+    return {
+        "duration_s": float(min(end_time, t[-1])),
+        "path_length_m": float(seg[mask].sum()),
+        "mean_speed_mps": float(speed[mask].mean()),
+        "max_speed_mps": float(speed[mask].max()),
+        "mean_ang_rate_radps": float(ang_rate[mask].mean()),
+        "max_ang_rate_radps": float(ang_rate[mask].max()),
+    }
+
+
+def _write_proxy(out_dir: str, reader, stats: dict):
+    import yaml
+
+    (write_asl_tree if isinstance(reader, SyntheticASLReader) else write_uzhfpv_tree)(reader, out_dir)
+    with open(os.path.join(out_dir, "proxy_info.yaml"), "w") as f:
+        yaml.safe_dump(stats, f)
+    return reader.sim, stats
+
+
+def generate_v101_proxy(out_dir: str, end_time: float = 144.0, seed: int = 11):
+    """Write the V1_01 proxy (:func:`v101_proxy`) as an ASL tree with its
+    motion statistics against V1_01's in ``proxy_info.yaml``; returns
+    ``(sim, stats)``."""
+    reader = v101_proxy(end_time, seed)
+    stats = {**_motion_stats(reader.sim, end_time), "targets_v101": {
+        "duration_s": 144.0, "path_length_m": 58.56120400739347, "mean_speed_mps": 58.56120400739347 / 144.0}}
+    return _write_proxy(out_dir, reader, stats)
+
+
+def generate_mh03_proxy(out_dir: str, end_time: float = 132.0, seed: int = 17, reader=None):
+    """Write the MH_03 proxy (:func:`mh03_proxy`) as an ASL tree with its
+    motion statistics against MH_03's in ``proxy_info.yaml``; returns
+    ``(sim, stats)``.  ``reader``: that scene, already built (it takes
+    tens of seconds to render at full length)."""
+    reader = reader or mh03_proxy(end_time, seed)
+    stats = {**_motion_stats(reader.sim, end_time), "targets_mh03": {
+        "duration_s": 132.0, "path_length_m": 127.35526466112435, "mean_speed_mps": 127.35526466112435 / 132.0}}
+    return _write_proxy(out_dir, reader, stats)
+
+
+def generate_distractor_proxy(out_dir: str, end_time: float = 45.0, seed: int = 21, num_distractors: int = 8):
+    """Write the distractor scene (:func:`distractor_proxy`) as an ASL tree;
+    returns ``(sim, stats)``."""
+    reader = distractor_proxy(end_time, seed, num_distractors)
+    return _write_proxy(out_dir, reader, {"duration_s": float(end_time), "num_distractors": num_distractors})
+
+
+def generate_racing_proxy(out_dir: str, end_time: float = 60.0, seed: int = 13):
+    """Write the racing proxy (:func:`racing_proxy`) as a UZH-FPV tree with
+    its motion statistics in ``proxy_info.yaml``; returns ``(sim, stats)``."""
+    reader = racing_proxy(end_time, seed)
+    return _write_proxy(out_dir, reader, _motion_stats(reader.sim, end_time))
+
+
 def shifted_texture_pair(height: int, width: int, shift: tuple[int, int], seed: int = 5,
                          device="cpu") -> tuple[torch.Tensor, torch.Tensor]:
     """A smooth random texture in [0, 1] (bicubic noise at 64, 16 and 4 px
@@ -298,5 +484,7 @@ def noised_lanes(imgs: np.ndarray, batch: int, noise_seed: int = 7) -> np.ndarra
     ])
 
 
-__all__ = ["SyntheticASLReader", "SyntheticUZHFPVReader", "bench_scene", "distractor_proxy", "mh03_proxy",
-           "noised_lanes", "racing_proxy", "shifted_texture_pair", "v101_proxy"]
+__all__ = ["SyntheticASLReader", "SyntheticUZHFPVReader", "bench_scene", "distractor_proxy",
+           "generate_asl_dataset", "generate_distractor_proxy", "generate_mh03_proxy", "generate_racing_proxy",
+           "generate_uzhfpv_dataset", "generate_v101_proxy", "mh03_proxy", "noised_lanes", "racing_proxy",
+           "shifted_texture_pair", "v101_proxy", "write_asl_tree", "write_uzhfpv_tree"]

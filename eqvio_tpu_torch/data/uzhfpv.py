@@ -18,6 +18,8 @@ from .asl import CameraInfo, GroundTruth, ImageSeq, IMUSeq
 
 
 class UZHFPVDatasetReader:
+    decoder = "pil"  # what decodes the frames (data.server.DataServer.decoder)
+
     def __init__(self, dataset_dir: str, camera_yaml: str | None = None):
         self.base = dataset_dir.rstrip("/") + "/"
         self.imu = self._read_imu()

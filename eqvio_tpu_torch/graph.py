@@ -53,6 +53,7 @@ class GraphStep:
         self._out = None
         self.capture_s = None  # seconds to capture and instantiate the graph
         self.pool_bytes = None  # device memory the capture reserved for the graph's pool
+        self.replays = 0  # graph launches
 
     def _body(self):
         new, out = self._fn(tree_unflatten(self.carry, self._spec), *self.inputs)
@@ -100,6 +101,7 @@ class GraphStep:
         if self.graph is None:
             self._capture()
         self.graph.replay()
+        self.replays += 1
         return self._out
 
     def cost_analysis(self) -> dict:

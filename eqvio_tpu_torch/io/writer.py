@@ -1,6 +1,7 @@
 """CSV output writer with the reference VIOWriter's files and headers
-(counterpart of ``eqvio_tpu/io/writer.py`` without its streaming mode;
-numpy only).  Lines are buffered in memory and written on :meth:`flush`.
+(counterpart of ``eqvio_tpu/io/writer.py``; numpy only).  Lines are
+buffered in memory and written on :meth:`flush`, or with ``streaming=True``
+handed to the native async writer as they come.
 """
 
 from __future__ import annotations
@@ -43,15 +44,33 @@ class VIOWriter:
     """Buffered CSV writer: IMUState.csv, camera.csv, bias.csv, points.csv,
     features.csv and timing.csv, and the simulation's trueState.csv,
     landmarkError.csv, poseConsistency.csv, biasConsistency.csv and
-    nees.csv."""
+    nees.csv.
 
-    def __init__(self, output_dir: str):
+    With ``streaming=True`` each line goes to :class:`io.native.AsyncFile`
+    (``native/aofstream.cpp``: a C++ thread flushes the files), so a long
+    run holds no output in Python memory; where that library does not
+    build, the writer buffers as without it."""
+
+    def __init__(self, output_dir: str, streaming: bool = False):
         self.output_dir = output_dir
         os.makedirs(output_dir, exist_ok=True)
-        self._buffers: dict[str, list] = {}
+        self._buffers: dict = {}
+        self._native = None
+        if streaming:
+            from . import native
 
-    def _file(self, name: str, header: str) -> list:
-        return self._buffers.setdefault(name, [header])
+            if native.available():
+                self._native = native
+
+    def _file(self, name: str, header: str):
+        if name not in self._buffers:
+            if self._native is not None:
+                handle = self._native.AsyncFile(os.path.join(self.output_dir, name))
+                handle.write(header)
+                self._buffers[name] = handle
+            else:
+                self._buffers[name] = [header]
+        return self._buffers[name]
 
     def write_states(self, stamp, pose_R, pose_x, velocity, cam_R, cam_x, bias,
                      landmarks=None, landmark_ids=None, landmark_mask=None):
@@ -126,6 +145,11 @@ class VIOWriter:
                   [nees, dof, pose_nees, attitude_nees])
 
     def flush(self):
+        if self._native is not None:
+            for handle in self._buffers.values():
+                handle.close()
+            self._buffers.clear()
+            return
         for name, lines in self._buffers.items():
             with open(os.path.join(self.output_dir, name), "w") as f:
                 f.writelines(lines)

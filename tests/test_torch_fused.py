@@ -362,9 +362,17 @@ def test_static_gate_settings(threshold):
 
 
 @pytest.mark.parametrize("flag", ["--simvis", "--simimu", "--checkpointEvery=5", "--resume=x", "--live=8000"])
-def test_unported_cli_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_run_opt.main(["dataset_dir", "config.yaml", "--device", "cpu", flag])
+def test_unported_cli_flags_raise(flag, monkeypatch):
+    """The flags that raised before they were ported now reach run_dataset."""
+    seen = {}
+    monkeypatch.setattr(torch_run_opt, "load_config", lambda path: {})
+    monkeypatch.setattr(torch_run_opt, "run_dataset", lambda dataset, config, **kw: (
+        seen.update(kw), (None, {"healthy": True, "frames": 0, "fps": 0.0, "landmarks": 0}))[1])
+    torch_run_opt.main(["dataset_dir", "config.yaml", "--device", "cpu", flag])
+    expected = {"--simvis": ("simvis", True), "--simimu": ("simimu", True),
+                "--checkpointEvery=5": ("checkpoint_every", 5), "--resume=x": ("resume", "x"),
+                "--live=8000": ("live_port", 8000)}[flag]
+    assert seen[expected[0]] == expected[1]
 
 
 def test_cli_passes_fused_options(monkeypatch):
