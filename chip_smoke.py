@@ -150,6 +150,24 @@ Phases, each printing one line; any failure exits nonzero before the result:
    phase 10's, frames/s and the checkpoint's ms per save.  The trees go to
    ``build/smoke_files`` and are removed after the phase.
 
+13. parallel: the slice of ``eqvio_tpu_torch/parallel`` (``parallel.dryrun``).
+   (a) In this process, a one-rank NCCL group: phase 9(b)'s 128 lanes
+   through ``build_sim_runner(batch=128, mesh={"seq": 1})``, their
+   positions bitwise equal to phase 9(b)'s (the same graph over the same
+   lanes), and the landmark-sharded update on ``{"lm": 1}`` in the JAX dry
+   run's cases 2, 2b and 2c (float32 dense and square root at capacity 16
+   over 6 frames, square root at capacity 256 over 2 frames: a 1,301 x 1,301
+   pre-array), each within 1e-3 m of the local update's trajectory and 1e-2
+   of its Sigma in the same eager loop; the group is destroyed after.  (b)
+   The same cases in two processes that share the card over gloo (NCCL
+   refuses two ranks on one card): ``{"seq": 2}``, 64 lanes a rank, within
+   1e-3 m of phase 9(b), and ``{"lm": 2}`` within the same bounds.  (c) Two
+   ``dist_worker`` processes on the card over gloo: process 0 prints
+   ``DIST_OK``.  Each process has a time limit.  Prints the largest errors,
+   the backend, ``staged=none`` (gloo carries the collectives of CUDA
+   tensors) and the wall seconds; with two processes on one card they
+   measure the split's overhead, not scaling.
+
 Every fused run also counts one eager frame step's operations and bytes
 (``cost.py``; the summary's ``flops_per_frame``): the KLT wrapper counts that
 step's launch beside the warm-ups before each capture.
@@ -187,6 +205,8 @@ TRAVEL_PX = 3  # coarsest-level travel of the moved pair's tracks
 PROFILE_CHUNK = 2  # the fused run's chunk that is traced (chunk 0 holds the capture)
 SIM_SECONDS = 30.0  # phase 9: the wave trajectory, 200 Hz IMU, 20 Hz frames
 SIM_FRAMES = 595
+SIM_SCENE = dict(capacity=32, max_features=30, end_time=SIM_SECONDS, imu_freq=200.0, frame_freq=20.0, num_walls=4,
+                 num_points=1000)
 SIM_BATCH = 128
 SIM_FLEET = 32
 SIM_CMP_FRAMES = 20  # frames held against the cpu float64 run or the single-lane card run
@@ -230,6 +250,11 @@ FILES_CKPT_EVERY = 1024
 FILES_RACING_SECONDS = 5.0
 BAG_FRAMES = 100
 BAG_TOL_M = 1e-6
+# phase 13: the parallel slice
+MESH_DIR = os.path.join(HERE, "build", "smoke_mesh")  # build/ is git-ignored
+MESH_TIMEOUT_S = 300  # each process of (b) and (c)
+MESH_SEQ_TOL_M = 1e-3  # (b) against phase 9(b): the JAX dry run's bound for a sharded run
+MESH_LM_CASES = ("lm", "lm_sqrt", "lm_big")  # the dry run's cases 2, 2b and 2c
 
 
 def fail(msg: str) -> None:
@@ -464,10 +489,12 @@ def sim_window(name, runner, trace_dir, dev) -> dict:
     return win
 
 
-def phase_sim(dev, card) -> None:
+def phase_sim(dev, card):
     """Phase 9: the simulation runner on the card, (a) one sequence in
     float64 with the consistency outputs, (b) SIM_BATCH lanes of one
-    sequence in float32, (c) a fleet of SIM_FLEET sequences in float32."""
+    sequence in float32, (c) a fleet of SIM_FLEET sequences in float32.
+    Returns (b)'s positions ``[SIM_BATCH, T, 3]``, which phase 13 holds its
+    sharded runs to."""
     import numpy as np
     import torch
 
@@ -475,12 +502,10 @@ def phase_sim(dev, card) -> None:
     from eqvio_tpu_torch import runner as SR
 
     f64, f32 = torch.float64, torch.float32
-    scene = dict(capacity=32, max_features=30, end_time=SIM_SECONDS, imu_freq=200.0, frame_freq=20.0, num_walls=4,
-                 num_points=1000)
 
     # (a) one sequence, float64, landmarks augmented at truth, consistency outputs
     settings_a = F.Settings(measurement_noise=0.5)
-    inputs_a = SR.prepare_sim_inputs(settings_a, dtype=f64, **scene)
+    inputs_a = SR.prepare_sim_inputs(settings_a, dtype=f64, **SIM_SCENE)
     run_a = SR.build_sim_runner(settings_a, inputs_a, consistency=True, device="cuda")
     ms_a, dev_a, res_a = sim_timed(run_a)
     T = run_a.frames
@@ -510,7 +535,7 @@ def phase_sim(dev, card) -> None:
     # (b) B lanes of one sequence, float32, self-initialised (the bench's sim settings)
     settings_b = F.Settings(measurement_noise=0.5, coordinate_choice="invdepth", fast_riccati=True,
                             use_discrete_innovation_lift=False, use_median_depth=False, initial_scene_depth=2.5)
-    inputs_b = SR.prepare_sim_inputs(settings_b, dtype=f32, **scene)
+    inputs_b = SR.prepare_sim_inputs(settings_b, dtype=f32, **SIM_SCENE)
     opts_b = dict(augment_true_landmarks=False, compute_nees=False, device="cuda")
     run_b = SR.build_sim_runner(settings_b, inputs_b, batch=SIM_BATCH, **opts_b)
     ms_b, dev_b, res_b = sim_timed(run_b)
@@ -545,7 +570,7 @@ def phase_sim(dev, card) -> None:
 
     # (c) a fleet of K different sequences, float32, input and output noise
     t0 = time.perf_counter()
-    noisy = dict(scene, input_noise=True, output_noise=True)
+    noisy = dict(SIM_SCENE, input_noise=True, output_noise=True)
     inputs_c = [SR.prepare_sim_inputs(settings_b, seed=i, noise_seed=i + 1, dtype=f32, **noisy)
                 for i in range(SIM_FLEET)]
     prep_c = time.perf_counter() - t0
@@ -575,6 +600,7 @@ def phase_sim(dev, card) -> None:
           f"lanes {lanes_c} within {d_fleet:.3g} m of the cpu float64 fleet over {m} frames (limit "
           f"{SIM_FLEET_TOL_M}), whose sequences lie at least {apart_c:.3g} m apart; inputs prepared on the host "
           f"in {prep_c:.1f} s ({card})", flush=True)
+    return est_b
 
 
 def case_times(K, B, case) -> dict:
@@ -958,6 +984,117 @@ def phase_batch(card) -> dict:
           f"{cost_b['bytes accessed'] / (ms_b * 1e6):.3f} GB/s against the traced frames' device time; largest "
           f"per batched frame: {win_b['largest']}; one lane: {win_1['largest']} ({card})", flush=True)
     return {"launches": launches, "chunk": sum(win_b["klt_per_launch"]), "window": w, "graph_replay_ms": klt_ms}
+
+
+def _spawn(module: str, world: int, args: list, name: str) -> list:
+    """``world`` processes of ``python -m module <rank> <world> <port> args``
+    on the card (gloo, sharing it); each must exit 0 within MESH_TIMEOUT_S.
+    Returns their outputs."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = str(s.getsockname()[1])
+    env = dict(os.environ, PYTHONPATH=HERE)
+    procs = [subprocess.Popen([sys.executable, "-m", module, str(r), str(world), port] + args, cwd=HERE, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    try:
+        outs = [p.communicate(timeout=MESH_TIMEOUT_S)[0] for p in procs]
+    except subprocess.TimeoutExpired:
+        outs = None
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    if outs is None:
+        fail(f"{name}: {module} did not end within {MESH_TIMEOUT_S} s")
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            fail(f"{name}: rank {r} of {module} exited {p.returncode}: {out[-2000:]}")
+    return outs
+
+
+def _lm_note(res) -> str:
+    return "; ".join(
+        f"{case} capacity {int(res[case + '/capacity'])} x {int(res[case + '/frames'])} frames: trajectory "
+        f"{res[case + '/err_m']:.3g} m, Sigma {res[case + '/err_sigma']:.3g} from the local update, "
+        f"{res[case + '/wall_s']:.3f} s sharded against {res[case + '/local_wall_s']:.3f} s local"
+        for case in MESH_LM_CASES)
+
+
+def phase_mesh(est_sim_b, card) -> None:
+    """Phase 13: the parallel slice (``eqvio_tpu_torch/parallel``) on the
+    card.  (a) In this process, a one-rank NCCL group (``parallel.dryrun``
+    with one rank): phase 9(b)'s 128 lanes through
+    ``build_sim_runner(batch=128, mesh={"seq": 1})``, bitwise equal to phase
+    9(b)'s positions, and the landmark-sharded update on ``{"lm": 1}`` in
+    the dry run's cases 2, 2b and 2c (dense and square root at capacity 16
+    over 6 frames, square root at capacity 256 over 2 frames) within 1e-3 m
+    of the local update's trajectory and 1e-2 of its Sigma; the group is
+    destroyed after.  (b) The same cases in two processes that share the
+    card over gloo: ``{"seq": 2}`` (64 lanes each) within 1e-3 m of phase
+    9(b), and ``{"lm": 2}`` within the same bounds.  (c) Two
+    ``dist_worker`` processes on the card over gloo print ``DIST_OK``.
+    Collectives on CUDA tensors go through the backend directly
+    (``staged=none``): gloo carries ``all_gather`` and ``all_reduce`` of
+    CUDA tensors in this torch."""
+    import numpy as np
+
+    from eqvio_tpu_torch.parallel import dryrun
+
+    shape = dict(SIM_SCENE, batch=SIM_BATCH, dtype="float32", reps=1)
+    spec = {"seq": shape, **{case: {} for case in MESH_LM_CASES}}
+
+    # (a) one rank, NCCL, in this process
+    t0 = time.perf_counter()
+    res = dryrun.main(0, 1, None, device="cuda", out=os.path.join(MESH_DIR, "one"), spec=spec)
+    secs_a = time.perf_counter() - t0
+    est = res["seq/est_position"]
+    if est.shape != est_sim_b.shape or not np.array_equal(est, est_sim_b):
+        fail(f"mesh (a): the {{'seq': 1}} run's positions {est.shape} are not phase 9(b)'s {est_sim_b.shape} "
+             f"bitwise (largest difference {np.abs(est - est_sim_b).max() if est.shape == est_sim_b.shape else '-'})")
+    if res["backend"] != "nccl":
+        fail(f"mesh (a): the one-rank group's backend is {res['backend']}, not nccl")
+    print(f"mesh (a): one rank, backend {res['backend']}, staged=none, in this process: {{'seq': 1}} x {SIM_BATCH} "
+          f"lanes x {est.shape[1]} frames equal to phase 9(b) bitwise ({res['seq/wall_s_seq1']:.3f} s a run "
+          f"against {res['seq/wall_s_local']:.3f} s without a mesh; outputs read back in "
+          f"{res['seq/result_s_seq1'] * 1e3:.3f} ms against {res['seq/result_s_local'] * 1e3:.3f}); {{'lm': 1}}: "
+          f"{_lm_note(res)}; {secs_a:.1f} s in all ({card})", flush=True)
+
+    # (b) two processes sharing the card over gloo
+    t0 = time.perf_counter()
+    os.makedirs(MESH_DIR, exist_ok=True)
+    spec_path = os.path.join(MESH_DIR, "spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    out_b = os.path.join(MESH_DIR, "two")
+    _spawn("eqvio_tpu_torch.parallel.dryrun", 2, ["--device", "cuda", "--backend", "gloo", "--out", out_b,
+                                                  "--spec", spec_path], "mesh (b)")
+    secs_b = time.perf_counter() - t0
+    ranks = [dict(np.load(os.path.join(out_b, f"rank{r}.npz"))) for r in range(2)]
+    est = ranks[0]["seq/est_position"]
+    d_seq = float(np.abs(est - est_sim_b).max()) if est.shape == est_sim_b.shape else float("inf")
+    if not d_seq <= MESH_SEQ_TOL_M:
+        fail(f"mesh (b): the {{'seq': 2}} run's positions {est.shape} lie {d_seq} m from phase 9(b)'s (limit "
+             f"{MESH_SEQ_TOL_M})")
+    r0 = ranks[0]
+    print(f"mesh (b): two processes on one card over gloo (wall times: overhead, not scaling), backend "
+          f"{r0['backend']}, staged=none: {{'seq': 2}} x {SIM_BATCH} lanes ({SIM_BATCH // 2} a rank) within "
+          f"{d_seq:.3g} m of phase 9(b) (limit {MESH_SEQ_TOL_M}), {max(r['seq/err_m'] for r in ranks):.3g} m from "
+          f"each rank's run without a mesh; a run {r0['seq/wall_s_seq2']:.3f} s against {r0['seq/wall_s_local']:.3f} "
+          f"s for all {SIM_BATCH} lanes in one process beside the other (rank 1: {ranks[1]['seq/wall_s_seq2']:.3f} "
+          f"and {ranks[1]['seq/wall_s_local']:.3f}); outputs read back in {r0['seq/result_s_seq2'] * 1e3:.3f} ms "
+          f"with the gather against {r0['seq/result_s_local'] * 1e3:.3f}; {{'lm': 2}}: {_lm_note(r0)}; "
+          f"{secs_b:.1f} s in all, process start included ({card})", flush=True)
+
+    # (c) the multi-process worker on the card
+    t0 = time.perf_counter()
+    outs = _spawn("eqvio_tpu_torch.parallel.dist_worker", 2, ["--device", "cuda", "--backend", "gloo"], "mesh (c)")
+    line = next((ln for ln in outs[0].splitlines() if ln.startswith("DIST_OK")), None)
+    if line != "DIST_OK processes=2 global_devices=2 batch=2 active_landmarks=32":
+        fail(f"mesh (c): process 0 printed {outs[0][-1000:]!r}")
+    print(f"mesh (c): dist_worker, two processes on one card over gloo, staged=none: {line} "
+          f"({time.perf_counter() - t0:.1f} s, process start included) ({card})", flush=True)
 
 
 def main() -> None:
@@ -1389,7 +1526,7 @@ def main() -> None:
               f"pool {run_m['graph']['pool_bytes']} bytes ({card})", flush=True)
 
     # ---- 9. simulation: the eqvio_sim runner as a captured frame step -------
-    phase_sim(dev, card)
+    est_sim_b = phase_sim(dev, card)
 
     # ---- 10. the MH_03 proxy, fused, float32 -------------------------------
     mh = phase_mh03(mh03, cfg_mh03, mh03_build_s, card)
@@ -1399,6 +1536,9 @@ def main() -> None:
 
     # ---- 12. the file path: trees, app.batch, resume, rosbag ------------------
     fl = phase_files(mh03, cfg_mh03, mh, card)
+
+    # ---- 13. the parallel slice: mesh, sharded runner, sharded update, worker --
+    phase_mesh(est_sim_b, card)
 
     print(json.dumps({"kernels": [{
         "name": "klt_track_pyramid",

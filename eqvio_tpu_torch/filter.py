@@ -516,6 +516,30 @@ def propagate_window(
 # ---------------------------------------------------------------------------
 
 
+def output_terms(state: EqFState, pixels: torch.Tensor, vis_mask: torch.Tensor, camera, settings: Settings,
+                 suite: CoordinateSuite) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The update's measurement terms: the output matrix blocks ``C [N, 2,
+    3]`` and the residual ``[N, 2]``, both zero on slots that are not active
+    and visible, and the measurement variances ``[2N]`` (1 where inactive)."""
+    xi0, X = state.xi0, state.X
+    active = (xi0.mask & vis_mask).to(state.Sigma.dtype)
+    y_hat, _ = measure_system(state_action(X, xi0), camera)
+    resid = (pixels - y_hat) * active[:, None]
+
+    if settings.use_equivariant_output:
+        C = suite.output_Ci_star(xi0.landmarks, X.Q, camera, pixels)
+    else:
+        C = suite.output_Ci(xi0.landmarks, X.Q, camera)
+    C = C * active[:, None, None]
+    act2 = active.repeat_interleave(2) > 0
+    r_diag = torch.where(
+        act2,
+        torch.full_like(active.repeat_interleave(2), settings.measurement_noise**2),
+        torch.ones_like(active.repeat_interleave(2)),
+    )
+    return C, resid, r_diag
+
+
 def update_vision(
     state: EqFState,
     pixels: torch.Tensor,
@@ -542,23 +566,7 @@ def update_vision(
     xi0, X, Sigma = state.xi0, state.X, state.Sigma
     N = xi0.capacity
     D = xi0.dim()
-    dtype, device = Sigma.dtype, Sigma.device
-
-    active = (xi0.mask & vis_mask).to(dtype)
-    y_hat, _ = measure_system(state_action(X, xi0), camera)
-    resid = (pixels - y_hat) * active[:, None]
-
-    if settings.use_equivariant_output:
-        C = suite.output_Ci_star(xi0.landmarks, X.Q, camera, pixels)
-    else:
-        C = suite.output_Ci(xi0.landmarks, X.Q, camera)
-    C = C * active[:, None, None]
-    act2 = active.repeat_interleave(2) > 0
-    r_diag = torch.where(
-        act2,
-        torch.full_like(active.repeat_interleave(2), settings.measurement_noise**2),
-        torch.ones_like(active.repeat_interleave(2)),
-    )
+    C, resid, r_diag = output_terms(state, pixels, vis_mask, camera, settings, suite)
 
     m = 2 * N
     if settings.sqrt_covariance:
@@ -569,38 +577,58 @@ def update_vision(
             W = Sigma
         Wc = W.shape[1]
         CW = torch.einsum("iax,ixd->iad", C, W[SENSOR_DIM:].reshape(N, 3, Wc)).reshape(m, Wc)
-        pre = W.new_zeros(m + D, m + Wc)  # from a state tensor, so a vmap over lanes batches it
-        pre[:m, :m] = torch.diag(torch.sqrt(r_diag))
-        pre[:m, m:] = CW
-        pre[m:, m:] = W
-        post = tria(pre)
-        S_half = post[:m, :m]
-        Kbar = post[m:, :m]
-        Sigma_new = post[m:, m:]
-        Gamma = Kbar @ torch.linalg.solve_triangular(S_half, resid.reshape(-1, 1), upper=False).squeeze(-1)
+        Gamma, Sigma_new = kailath_update(r_diag, CW, W, resid)
     else:
         if surgery is not None:
             Sigma = _dense_mask_reset(Sigma, *surgery)
         Sig_lm = Sigma[SENSOR_DIM:, SENSOR_DIM:].reshape(N, 3, N, 3)
         S = torch.einsum("iax,ixjy,jby->iajb", C, Sig_lm, C).reshape(m, m) + torch.diag(r_diag)
         SigCt = torch.einsum("djy,jby->djb", Sigma[:, SENSOR_DIM:].reshape(D, N, 3), C).reshape(D, m)
-        chol = torch.linalg.cholesky_ex(S)[0]
-        # K = SigCt S^-1 from S K^T = SigCt^T, through the two triangular factors
-        Kt = torch.linalg.solve_triangular(
-            chol.T, torch.linalg.solve_triangular(chol, SigCt.T, upper=False), upper=True)
-        K = Kt.T
+        K = kalman_gain(S, SigCt)
         Gamma = K @ resid.reshape(-1)
         Sigma_new = Sigma - K @ SigCt.T
         Sigma_new = 0.5 * (Sigma_new + Sigma_new.T)
 
+    X_new = innovate(X, Gamma, xi0, settings, suite)
+    if not (settings.sqrt_covariance and surgery is not None):
+        Sigma_new = sanitize_sigma(Sigma_new, xi0, settings)
+    return state._replace(X=X_new, Sigma=Sigma_new)
+
+
+def kailath_update(r_diag: torch.Tensor, CW: torch.Tensor, W: torch.Tensor,
+                   resid: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The square-root update as one QR of the Kailath pre-array ``[[R^1/2,
+    C W], [0, W]]``: returns the innovation ``Gamma [D]`` and the posterior
+    factor ``[D, D]``."""
+    m, D, Wc = CW.shape[0], W.shape[0], W.shape[1]
+    pre = W.new_zeros(m + D, m + Wc)  # from a state tensor, so a vmap over lanes batches it
+    pre[:m, :m] = torch.diag(torch.sqrt(r_diag))
+    pre[:m, m:] = CW
+    pre[m:, m:] = W
+    post = tria(pre)
+    S_half = post[:m, :m]
+    Kbar = post[m:, :m]
+    Gamma = Kbar @ torch.linalg.solve_triangular(S_half, resid.reshape(-1, 1), upper=False).squeeze(-1)
+    return Gamma, post[m:, m:]
+
+
+def kalman_gain(S: torch.Tensor, SigCt: torch.Tensor) -> torch.Tensor:
+    """``K = SigCt S^-1`` from ``S K^T = SigCt^T`` through the two triangular
+    factors of ``S`` (``cholesky_ex``: no host check of its ``info``)."""
+    chol = torch.linalg.cholesky_ex(S)[0]
+    return torch.linalg.solve_triangular(
+        chol.T, torch.linalg.solve_triangular(chol, SigCt.T, upper=False), upper=True).T
+
+
+def innovate(X: VIOGroup, Gamma: torch.Tensor, xi0: VIOState, settings: Settings,
+             suite: CoordinateSuite) -> VIOGroup:
+    """The observer corrected by the innovation ``Gamma`` (the update's
+    ``K r``), lifted to the group and applied on the left."""
     if settings.use_discrete_innovation_lift:
         Delta = suite.lift_innovation_discrete(Gamma, xi0)
     else:
         Delta = group_exp(suite.lift_innovation(Gamma, xi0))
-    X_new = group_normalize(group_mul(Delta, X))
-    if not (settings.sqrt_covariance and surgery is not None):
-        Sigma_new = sanitize_sigma(Sigma_new, xi0, settings)
-    return state._replace(X=X_new, Sigma=Sigma_new)
+    return group_normalize(group_mul(Delta, X))
 
 
 # ---------------------------------------------------------------------------

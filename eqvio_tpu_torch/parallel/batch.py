@@ -1,13 +1,12 @@
 """A batch of filter instances as one program (counterpart of
-``eqvio_tpu/parallel/batch.py``, without the device mesh): every state and
-input carries a leading lane axis and the one-sequence step runs under
-``torch.func.vmap``, so the work per frame is one batched launch per
-operation whatever the number of lanes.
+``eqvio_tpu/parallel/batch.py``): every state and input carries a leading
+lane axis and the one-sequence step runs under ``torch.func.vmap``, so the
+work per frame is one batched launch per operation whatever the number of
+lanes.
 
-API parity with the JAX module: nothing in the port drives these yet (the
-simulation runner vmaps its own frame step, which also tracks slots and
-writes outputs).  Their caller in the JAX package is the multi-host
-``dist_worker``, which comes with the mesh (``ROADMAP.md`` queue 1, item 10).
+The multi-process worker (``parallel/dist_worker.py``) drives these over
+each rank's block of the lanes.  The simulation runner vmaps its own frame
+step, which also tracks slots and writes outputs.
 """
 
 from __future__ import annotations
@@ -15,12 +14,16 @@ from __future__ import annotations
 import torch
 from .. import filter as F
 from ..graph import broadcast_lanes
+from ..runtime import configure_runtime
 
 
 def make_batched_states(settings: F.Settings, batch: int, capacity: int, dtype=torch.float32,
-                        device="cpu") -> F.EqFState:
-    """``batch`` freshly initialised filter states (leading axis = lane)."""
-    one = F.init_state(settings, capacity, dtype, device)
+                        device: str = "cuda") -> F.EqFState:
+    """``batch`` freshly initialised filter states (leading axis = lane) on
+    ``device`` (``cuda`` unless the caller asks for ``cpu``; without a card
+    the default raises)."""
+    dev, _ = configure_runtime(device)
+    one = F.init_state(settings, capacity, dtype, dev)
     return broadcast_lanes(one, batch)
 
 

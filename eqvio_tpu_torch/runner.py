@@ -13,9 +13,10 @@ same step runs directly.  ``batch=B`` and :func:`build_fleet_runner` run the
 one-sequence step over a leading lane axis with ``torch.func.vmap``, in the
 same single graph: the launches per frame do not grow with the lanes.
 ``SimRunner.cost_analysis()`` counts a run's operations and bytes, as the
-JAX runner's ``run.cost_analysis()`` reads them from XLA.
-
-Not ported: the JAX runner's ``mesh=`` sharding (``ROADMAP.md`` queue 1).
+JAX runner's ``run.cost_analysis()`` reads them from XLA.  With ``mesh=``
+(``parallel/mesh.py``) each rank runs its own block of the lanes through its
+own graph, with no collective inside it, and the outputs are gathered over
+the mesh's ``seq`` axis after the replays.
 """
 
 from __future__ import annotations
@@ -274,13 +275,17 @@ class SimRunner:
 
     ``step`` is the :class:`GraphStep` that advances every lane by one
     frame; ``frames`` is the sequence length.  ``lanes`` is ``None`` for
-    one sequence, else the number of lanes.
+    one sequence, else the number of lanes this process runs.  With a
+    ``mesh``, those are this rank's block of the lanes, and ``result()``
+    (which every rank of the ``seq`` axis calls together) gathers every
+    rank's lanes in rank order.
     """
 
     def __init__(self, frame_fn, state0, capacity: int, seq: dict, lanes: int | None, times: torch.Tensor,
-                 truth: tuple, consistency: bool, device: torch.device):
+                 truth: tuple, consistency: bool, device: torch.device, mesh=None):
         self.device = device
         self.lanes = lanes
+        self.mesh = mesh
         self.times = times
         self._truth = truth
         self._consistency = consistency
@@ -338,7 +343,9 @@ class SimRunner:
         ``run.cost_analysis()`` gives them: one frame step (every lane)
         counted by :func:`cost.count`, run eagerly on copies of the initial
         carry, times the frames (each frame runs the same ops on the same
-        shapes), with ``flops_per_frame`` and ``bytes_per_frame`` beside."""
+        shapes), with ``flops_per_frame`` and ``bytes_per_frame`` beside.
+        With a mesh it counts this rank's lanes, as XLA's cost analysis of a
+        partitioned program counts one device's share."""
         state, tracker, k = tree_map(torch.clone, self._carry0)
         per = cost.count(self._step_fn, state, tracker, self._frame(k.reshape(1)))
         return {"flops": per["flops"] * self.frames, "bytes accessed": per["bytes accessed"] * self.frames,
@@ -356,9 +363,14 @@ class SimRunner:
         """The outputs of the frames run so far, as CPU tensors."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        outs = [b.cpu() for b in self._bufs]
+        outs = self._bufs
         if self.lanes is not None:
             outs = [o.transpose(0, 1) for o in outs]  # [T, B, ...] -> [B, T, ...]
+            if self.mesh is not None:
+                from .parallel.mesh import gather_batch
+
+                outs = gather_batch(self.mesh, outs)
+        outs = [o.cpu() for o in outs]
         extras = tuple(outs[5:]) if self._consistency else None
         return SimRunResult(self.times, *outs[:3], *self._truth, *outs[3:5], consistency=extras)
 
@@ -378,6 +390,7 @@ def build_sim_runner(
     augment_true_landmarks: bool = True,
     compute_nees: bool = True,
     batch: int | None = None,
+    mesh=None,
     landmark_reset_every: int = 0,
     consistency: bool = False,
     full_state: bool = False,
@@ -387,13 +400,22 @@ def build_sim_runner(
     caller asks for ``cpu``; without a card the default raises).
 
     ``batch``: B filter instances of the same sequence over a lane axis
-    (outputs gain a leading lane axis).  ``landmark_reset_every``: if > 0,
+    (outputs gain a leading lane axis).  ``mesh``: a ``DeviceMesh`` with a
+    ``seq`` axis (``parallel.make_mesh``) on ``device``'s type: each rank
+    runs its ``batch / n`` lanes, and every rank's run returns all ``batch``
+    lanes.  ``landmark_reset_every``: if > 0,
     drop and re-insert every landmark at its true position every N frames.
     ``consistency``: also the pose/attitude NEES, error coordinates,
     marginal variances and landmark errors.  ``full_state``: every world
     point stays in the state (the inputs must be prepared with it).
     """
     dev, _ = configure_runtime(device)
+    lanes = batch
+    if mesh is not None:
+        if batch is None:
+            raise ValueError("mesh= splits the lanes of a batch: give batch=")
+        mine = _lane_block(mesh, batch, dev)
+        lanes = mine.stop - mine.start
     inp = _to(inputs, dev)
     frame_fn = _frame_step(settings, inp.camera, inp.sim.camera_offset, augment_true_landmarks, compute_nees,
                            consistency, full_state, landmark_reset_every)
@@ -403,17 +425,31 @@ def build_sim_runner(
     truth = (inputs.true_pos, inputs.true_R, inputs.true_vel)
     if batch is not None:
         truth = tuple(a.expand(batch, *a.shape) for a in truth)
-    return SimRunner(frame_fn, inp.state0, inp.capacity, seq, batch, inputs.ftimes, truth, consistency, dev)
+    return SimRunner(frame_fn, inp.state0, inp.capacity, seq, lanes, inputs.ftimes, truth, consistency, dev, mesh)
+
+
+def _lane_block(mesh, lanes: int, dev: torch.device) -> slice:
+    """This rank's block of ``lanes`` split over ``mesh``'s ``seq`` axis."""
+    from .parallel.mesh import block
+
+    if mesh.device_type != dev.type:
+        raise ValueError(f"the mesh is on {mesh.device_type!r}, the run on {dev.type!r}")
+    return block(lanes, mesh, "seq")
 
 
 def build_fleet_runner(settings: F.Settings, inputs_list: list[SimInputs], augment_true_landmarks: bool = False,
-                       device: str = "cuda") -> SimRunner:
+                       mesh=None, device: str = "cuda") -> SimRunner:
     """K genuinely different sequences (worlds and noise per lane) as lanes
     of one step on ``device``; all inputs must share their frame and IMU
-    timing.  Outputs have a leading lane axis; NEES is not computed."""
+    timing.  Outputs have a leading lane axis; NEES is not computed.
+    ``mesh``: as for :func:`build_sim_runner`; each rank stacks only its
+    block of ``inputs_list``, whose length the ``seq`` axis must divide."""
     dev, _ = configure_runtime(device)
     proto = inputs_list[0]
-    stack = lambda get: torch.stack([get(i) for i in inputs_list]).to(dev)  # noqa: E731
+    mine = inputs_list
+    if mesh is not None:
+        mine = inputs_list[_lane_block(mesh, len(inputs_list), dev)]
+    stack = lambda get: torch.stack([get(i) for i in mine]).to(dev)  # noqa: E731
     noise = stack(lambda i: i.pixel_noise if i.pixel_noise is not None else torch.zeros(
         proto.ftimes.shape[0], proto.capacity, 2, dtype=proto.true_pos.dtype))
     seq = dict(lanes=True, idx=proto.idx.to(dev), dts=proto.dts.to(dev),
@@ -421,12 +457,12 @@ def build_fleet_runner(settings: F.Settings, inputs_list: list[SimInputs], augme
                sel_ids=stack(lambda i: i.sel_ids), sel_pts=stack(lambda i: i.sel_pts), noise=noise,
                true_pos=stack(lambda i: i.true_pos), true_R=stack(lambda i: i.true_R),
                true_vel=stack(lambda i: i.true_vel), true_lm=None)
-    state0 = tree_map(lambda *xs: torch.stack(xs).to(dev), *[i.state0 for i in inputs_list])
+    state0 = tree_map(lambda *xs: torch.stack(xs).to(dev), *[i.state0 for i in mine])
     camera = _to(proto.camera, dev)
     frame_fn = _frame_step(settings, camera, _to(proto.sim.camera_offset, dev), augment_true_landmarks, False,
                            False, False, 0)
     truth = tuple(torch.stack([getattr(i, name) for i in inputs_list]) for name in ("true_pos", "true_R", "true_vel"))
-    return SimRunner(frame_fn, state0, proto.capacity, seq, len(inputs_list), proto.ftimes, truth, False, dev)
+    return SimRunner(frame_fn, state0, proto.capacity, seq, len(mine), proto.ftimes, truth, False, dev, mesh)
 
 
 def run_prepared(settings: F.Settings, inputs: SimInputs, augment_true_landmarks: bool = True,

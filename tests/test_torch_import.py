@@ -35,7 +35,9 @@ def _clean_env():
 
 
 SIM_MODULES = ("eqvio_tpu_torch.sim", "eqvio_tpu_torch.runner", "eqvio_tpu_torch.app.run_sim",
-               "eqvio_tpu_torch.parallel", "eqvio_tpu_torch.parallel.batch", "eqvio_tpu_torch.graph")
+               "eqvio_tpu_torch.parallel", "eqvio_tpu_torch.parallel.batch", "eqvio_tpu_torch.graph",
+               "eqvio_tpu_torch.parallel.mesh", "eqvio_tpu_torch.parallel.landmark_shard",
+               "eqvio_tpu_torch.parallel.dist_worker", "eqvio_tpu_torch.parallel.dryrun")
 
 
 def test_port_imports_no_jax():
@@ -44,8 +46,9 @@ def test_port_imports_no_jax():
     assert res.returncode == 0, res.stdout + res.stderr
     lines = res.stdout.splitlines()
     n_modules = int(lines[0].split()[0])
-    assert n_modules >= 28
-    assert set(SIM_MODULES) <= set(lines[1].split())  # the simulation slice is walked and imported too
+    assert n_modules >= 50
+    # the simulation and parallel slices are walked and imported too, and load no jax
+    assert set(SIM_MODULES) <= set(lines[1].split())
 
 
 def test_runner_loads_no_app_or_front_end():
@@ -138,3 +141,22 @@ def test_entry_points_default_to_the_card():
     reader = SyntheticASLReader(end_time=0.5, frame_freq=10.0, num_points=50)
     with pytest.raises(RuntimeError, match="cuda"):
         run_opt.run_dataset(reader, bench_config(), limit_frames=1)
+
+
+def test_parallel_entry_points_default_to_the_card():
+    """``make_batched_states`` and ``make_mesh`` run on CUDA unless asked
+    for the CPU; without a card the default raises before a process group
+    is started."""
+    import torch.distributed as dist
+
+    from eqvio_tpu_torch.filter import Settings
+    from eqvio_tpu_torch.parallel import make_batched_states, make_mesh
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU: the default would run on it")
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_batched_states(Settings(), 2, 4)
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_mesh()
+    assert not dist.is_initialized()
+    assert make_batched_states(Settings(), 2, 4, device="cpu").Sigma.shape[0] == 2

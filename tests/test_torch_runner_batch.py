@@ -71,7 +71,8 @@ def test_batch_sim_step_matches_jax():
     ij = JR.prepare_sim_inputs(SELF_INIT, **SCENE)
     it = TR.prepare_sim_inputs(settings_t, **SCENE)
     sj = jax_batched_states(SELF_INIT, 2, 12, dtype=jnp.float64)
-    assert_tree_close(sj, make_batched_states(settings_t, 2, 12, dtype=torch.float64), 0.0, "batched states")
+    assert_tree_close(sj, make_batched_states(settings_t, 2, 12, dtype=torch.float64, device="cpu"), 0.0,
+                      "batched states")
     sj = sj._replace(xi0=jax.tree.map(lambda a: jnp.stack([a, a]), ij.state0.xi0))
     st = convert.eqf_state_from_numpy(sj, torch.float64, "cpu")
     idx = np.asarray(ij.idx[3])
