@@ -168,6 +168,22 @@ Phases, each printing one line; any failure exits nonzero before the result:
    tensors) and the wall seconds; with two processes on one card they
    measure the split's overhead, not scaling.
 
+14. surface: the public entries that once defaulted to the CPU, called with
+   no ``device`` (``checkpoint.load_checkpoint`` and ``state_from_csv_line``,
+   ``sim.trajectory_poses``, ``Simulator.create`` and ``from_poses``,
+   ``sim.slot_tracker_init``, ``runner.default_sim_camera``,
+   ``camera.default_test_camera`` and ``data.shifted_texture_pair`` at
+   752x480): every output tensor on the card.  ``run_dataset`` on the
+   benchmark scene, its default device, chunks of 16, 64 frames, three
+   times: with no override, with ``imu_window`` equal to the derived value
+   and with ``camera_lag`` equal to the config's: identical ``IMUState.csv``
+   rows; a fourth run with a window 16 samples larger: finite and healthy
+   and within 0.05 m of phase 5's CPU float64 run over its frames.  The KLT
+   wrapper, zeroed before each run, counts the eager warm-ups before the
+   capture and the counted step.  A checkpoint of phase 6's final state
+   with an ``rng_key`` made on the card is saved and loaded back: the same
+   state and key.  Prints the phase's seconds.
+
 Every fused run also counts one eager frame step's operations and bytes
 (``cost.py``; the summary's ``flops_per_frame``): the KLT wrapper counts that
 step's launch beside the warm-ups before each capture.
@@ -1097,7 +1113,103 @@ def phase_mesh(est_sim_b, card) -> None:
           f"({time.perf_counter() - t0:.1f} s, process start included) ({card})", flush=True)
 
 
+SURFACE_FRAMES = 64
+SURFACE_DIR = os.path.join(HERE, "build", "smoke_surface")  # build/ is git-ignored; removed after the phase
+
+
+def phase_surface(reader, cfg, cpu, state_f, card) -> float:
+    """Phase 14 (see the module docstring); returns its seconds."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from torch.utils._pytree import tree_leaves
+
+    from eqvio_tpu_torch import checkpoint as CK
+    from eqvio_tpu_torch import runner as SR
+    from eqvio_tpu_torch import sim as S
+    from eqvio_tpu_torch.app import run_opt as R
+    from eqvio_tpu_torch.camera import default_test_camera
+    from eqvio_tpu_torch.data import shifted_texture_pair
+    from eqvio_tpu_torch.graph import WARMUP_STEPS
+    from eqvio_tpu_torch.kernels import klt as K
+    from eqvio_tpu_torch.lie import SE3
+
+    t_start = time.perf_counter()
+    shutil.rmtree(SURFACE_DIR, ignore_errors=True)
+    os.makedirs(SURFACE_DIR)
+    settings, _, _, _, _, window = R._setup(reader, cfg, torch.float32, torch.device("cuda"))
+
+    # the entries that once defaulted to the CPU, called without a device
+    times, poses = S.trajectory_poses("wave", 5.0, 100.0)
+    sim = S.Simulator.create(end_time=5.0, num_points=200)
+    key = torch.tensor([0, 42], dtype=torch.int64, device="cuda")
+    ckpt = os.path.join(SURFACE_DIR, "checkpoint.npz")
+    CK.save_checkpoint(ckpt, state_f, cursor={"frames": 0}, rng_key=key)
+    loaded, _, _, key_back = CK.load_checkpoint(ckpt)
+    capacity = int(state_f.xi0.landmarks.shape[-2])
+    outputs = {
+        "sim.trajectory_poses": (times, poses),
+        "sim.Simulator.create": sim,
+        "sim.Simulator.from_poses": S.Simulator.from_poses(times.cpu(), SE3(poses.R.cpu(), poses.x.cpu()),
+                                                          sim.camera_offset, num_points=200),
+        "sim.slot_tracker_init": S.slot_tracker_init(capacity),
+        "runner.default_sim_camera": SR.default_sim_camera(),
+        "camera.default_test_camera": default_test_camera(),
+        "data.shifted_texture_pair": shifted_texture_pair(480, 752, (3, -2)),
+        "checkpoint.load_checkpoint": loaded,
+        "checkpoint.state_from_csv_line": CK.state_from_csv_line(CK.state_to_csv_line(state_f, settings), capacity,
+                                                                 settings, dtype=torch.float32),
+    }
+    for name, out in outputs.items():
+        tensors = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
+        if not tensors or not all(t.is_cuda for t in tensors):
+            fail(f"surface: {name} without a device gave tensors on {sorted({str(t.device) for t in tensors})}")
+    for a, b in zip(tree_leaves(state_f), tree_leaves(loaded)):
+        if not torch.equal(a.to(b.dtype), b):
+            fail("surface: the checkpoint's state did not load back as saved")
+    if key_back is None or key_back.dtype != np.uint32 or key_back.tolist() != [0, 42]:
+        fail(f"surface: the checkpoint's rng_key came back as {key_back!r}")
+
+    # run_dataset: explicit values reproduce the defaults; a larger window runs
+    lag = float((cfg.get("main") or {}).get("cameraLag", 0.0))
+    rows, runs, counts = {}, {}, {}
+    for name, kw in (("default", {}), ("imu_window", {"imu_window": window}), ("camera_lag", {"camera_lag": lag}),
+                     ("larger_window", {"imu_window": window + 16})):
+        out = os.path.join(SURFACE_DIR, name)
+        K.klt_track_pyramid.launches = 0
+        state, summary = R.run_dataset(reader, cfg, output_dir=out, chunk_size=CHUNK, limit_frames=SURFACE_FRAMES,
+                                       **kw)
+        launches = K.klt_track_pyramid.launches
+        check_run(f"surface {name}", state, summary, frames=SURFACE_FRAMES)
+        if launches != WARMUP_STEPS + R.COST_STEPS:
+            fail(f"surface {name}: KLT wrapper {launches} eager launches (expected the {WARMUP_STEPS} warm-ups "
+                 f"before capture and the {R.COST_STEPS} counted step)")
+        with open(os.path.join(out, "IMUState.csv")) as f:
+            rows[name] = f.read()
+        runs[name], counts[name] = summary, launches
+    for name in ("imu_window", "camera_lag"):
+        if rows[name] != rows["default"]:
+            fail(f"surface: run_dataset({name}=the default's value) wrote other IMUState rows than the default run")
+    big = runs["larger_window"]
+    n = min(CPU_FRAMES, len(cpu["positions"]))
+    if not np.array_equal(cpu["stamps"][:n], big["stamps"][:n]):
+        fail("surface: the larger window's run did not cover the cpu run's frames")
+    diff = float(np.abs(cpu["positions"][:n] - big["positions"][:n]).max())
+    if not np.isfinite(diff) or diff > CPU_TOL_M:
+        fail(f"surface: imu_window={window + 16}: max position difference {diff} m to the cpu run (limit {CPU_TOL_M})")
+    shutil.rmtree(SURFACE_DIR, ignore_errors=True)
+    secs = time.perf_counter() - t_start
+    print(f"surface: {len(outputs)} entries without a device on cuda; run_dataset over {SURFACE_FRAMES} frames in "
+          f"chunks of {CHUNK}: imu_window={window} (derived) and camera_lag={lag} (config) rows identical to the "
+          f"default's ({rows['default'].count(chr(10)) - 1} rows), imu_window={window + 16} within {diff:.3g} m of "
+          f"the cpu run over {n} frames; KLT wrapper eager launches {json.dumps(counts)}; checkpoint "
+          f"with rng_key [0, 42] from the card loaded back; {secs:.1f} s ({card})", flush=True)
+    return secs
+
+
 def main() -> None:
+    t_smoke = time.perf_counter()
     if not os.path.isdir(os.path.join(HERE, "eqvio_tpu_torch")):
         fail("eqvio_tpu_torch/ is not beside this script: run it from a checkout of the repository")
     sys.path.insert(0, HERE)
@@ -1539,6 +1651,11 @@ def main() -> None:
 
     # ---- 13. the parallel slice: mesh, sharded runner, sharded update, worker --
     phase_mesh(est_sim_b, card)
+
+    # ---- 14. the public surface: defaults on the card, run_dataset's overrides --
+    surface_s = phase_surface(reader, cfg, cpu, state_f, card)
+    print(f"smoke: {time.perf_counter() - t_smoke:.1f} s in all, the surface phase {surface_s:.1f} s ({card})",
+          flush=True)
 
     print(json.dumps({"kernels": [{
         "name": "klt_track_pyramid",

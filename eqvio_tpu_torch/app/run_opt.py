@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import dataclasses
 import os
 import queue
@@ -53,6 +54,7 @@ from torch.utils._pytree import tree_flatten, tree_unflatten
 from .. import filter as F
 from ..camera import EquidistantCamera, PinholeCamera, RadTanCamera
 from ..data import DataServer, create_dataset_reader, noised_lanes
+from ..data.asl import ImageSeq
 from ..frontend import tracker_init, tracker_step
 from ..graph import GraphStep, broadcast_lanes, select
 from ..io import LoopTimer, VIOWriter, load_config, safe_get, settings_from_config, tracker_config_from_config
@@ -109,13 +111,15 @@ def camera_from_info(info, dtype: torch.dtype, device):
     return PinholeCamera.create(fx, fy, cx, cy, w, h, dtype=dtype, device=device)
 
 
-def _setup(reader, config, dtype: torch.dtype, device):
+def _setup(reader, config, dtype: torch.dtype, device, imu_window: int | None = None):
     """Settings (dataset extrinsics override, f32 square-root auto-enable),
-    tracker config, camera, initial states and the IMU-window size (the
-    dataset's IMU samples per frame with margin; pad entries are zero-dt
-    no-ops)."""
+    tracker config, camera, initial states and the IMU-window size (unless
+    given: the dataset's IMU samples per frame with margin; pad entries are
+    zero-dt no-ops)."""
     ist, fst = reader.imu.stamps, reader.images.stamps
-    if len(ist) > 2 and len(fst) > 2:
+    if imu_window is not None:
+        imu_window = int(imu_window)
+    elif len(ist) > 2 and len(fst) > 2:
         ratio = float(np.median(np.diff(fst)) / np.median(np.diff(ist)))
         imu_window = max(8, (int(np.ceil(ratio * 1.25)) + 6) // 4 * 4)
     else:
@@ -139,10 +143,18 @@ def _setup(reader, config, dtype: torch.dtype, device):
     return settings, tcfg, camera, state, tracker, imu_window
 
 
-def _open_reader(dataset, config, mode, camera_yaml):
+def _open_reader(dataset, config, mode, camera_yaml, camera_lag: float | None = None):
+    """The reader of a dataset path, its image stamps shifted earlier by
+    ``camera_lag`` (default: the config's ``cameraLag``); a reader object as
+    given, or a shallow copy shifted by ``camera_lag`` where that is nonzero."""
     if not isinstance(dataset, str):
-        return dataset
-    camera_lag = float((config.get("main", {}) or {}).get("cameraLag", 0.0))
+        if not camera_lag:
+            return dataset
+        reader = copy.copy(dataset)
+        reader.images = ImageSeq(reader.images.stamps - camera_lag, reader.images.paths)
+        return reader
+    if camera_lag is None:
+        camera_lag = float((config.get("main", {}) or {}).get("cameraLag", 0.0))
     return create_dataset_reader(mode, dataset, camera_yaml, camera_lag)
 
 
@@ -198,6 +210,8 @@ def run_dataset(
     checkpoint_path: str | None = None,
     resume: str | None = None,
     live_port: int | None = None,
+    imu_window: int | None = None,
+    camera_lag: float | None = None,
 ):
     """Run the pipeline; returns ``(final EqFState, summary)``.
 
@@ -234,14 +248,18 @@ def run_dataset(
     per-frame loop).  ``live_port`` serves the live map view
     (:class:`visualisation.LiveDisplayServer`) at
     ``http://127.0.0.1:<port>/`` (0: any free port) while the fused path runs.
+    ``imu_window`` overrides the IMU samples per frame window (default: the
+    dataset's IMU-per-frame ratio with margin); ``camera_lag`` shifts the
+    image stamps earlier by that many seconds (default: the config's
+    ``cameraLag`` for a dataset path, none for a reader object).
     """
     if profile_chunk is not None and (chunk_size <= 1 or not profile_dir):
         raise ValueError("profile_chunk traces one chunk of the fused path into profile_dir: "
                          "it needs chunk_size > 1 and profile_dir")
     dev, default_dtype = configure_runtime(device)
     dtype = dtype or default_dtype
-    reader = _open_reader(dataset, config, mode, camera_yaml)
-    settings, tcfg, camera, state, tracker, imu_window = _setup(reader, config, dtype, dev)
+    reader = _open_reader(dataset, config, mode, camera_yaml, camera_lag)
+    settings, tcfg, camera, state, tracker, imu_window = _setup(reader, config, dtype, dev, imu_window)
 
     first = [s[0] for s in (reader.imu.stamps, reader.images.stamps) if len(s)]
     t0_data = float(min(first)) if first else 0.0
@@ -289,8 +307,9 @@ def _ground_truth_simulator(reader, settings, dtype):
     gt = reader.groundtruth
     if gt is None:
         raise ValueError("simvis/simimu need the dataset's ground truth")
+    # the simulated measurements are synthesised on the host, frame by frame
     return Simulator.from_poses(gt.stamps, SE3(quat_to_rot(gt.quaternion), gt.position),
-                                settings.camera_offset_se3(dtype, "cpu"), dtype=dtype)
+                                settings.camera_offset_se3(dtype, "cpu"), dtype=dtype, device="cpu")
 
 
 def _simulated_imu(sim, stamp: float, dtype):
@@ -326,7 +345,7 @@ def _run_per_frame(server, state, tracker, tcfg, settings, camera, writer, timin
         from ..sim import gather_slots_compact, slot_tracker_init, slot_tracker_step_compact
 
         sim_camera = camera_from_info(server.reader.camera, dtype, "cpu")
-        sim_tracker = slot_tracker_init(tcfg.max_features)
+        sim_tracker = slot_tracker_init(tcfg.max_features, device="cpu")  # host synthesis, as the simulator
     loop_timer = LoopTimer(TIMING_LABELS)
     K = imu_window
     zeros_k3 = torch.zeros(K, 3, dtype=dtype, device=dev)
@@ -1196,6 +1215,7 @@ def main(argv=None):
                          "(to --checkpointPath or <output>/checkpoint.npz)")
     ap.add_argument("--checkpointPath", default=None, dest="checkpoint_path")
     ap.add_argument("--resume", default=None, help="resume from a checkpoint.npz written by --checkpointEvery")
+    ap.add_argument("--display", action="store_true", help="accepted for parity; no GUI")
     ap.add_argument("--live", type=int, default=None, metavar="PORT",
                     help="serve a live map view at http://127.0.0.1:PORT/ (fused path)")
     args = ap.parse_args(argv)

@@ -186,3 +186,8 @@ class EquidistantCamera(NamedTuple):
     def is_in_domain(self, p: torch.Tensor) -> torch.Tensor:
         """In front of the lens within its >180 degree field, and in the image."""
         return _in_image(self, p, p[..., 2] > -0.5 * torch.linalg.norm(p, dim=-1))
+
+
+def default_test_camera(dtype=torch.float64, device="cuda") -> PinholeCamera:
+    """A fake 800x480 pinhole camera mirroring the reference test fixture."""
+    return PinholeCamera.create(400.0, 400.0, 400.0, 240.0, 800, 480, dtype=dtype, device=device)

@@ -69,10 +69,13 @@ def _unflatten_state(d: dict, dtype: torch.dtype | None, device) -> F.EqFState:
 
 
 def save_checkpoint(path: str, state: F.EqFState, tracker: TrackerState | None = None,
-                    cursor: dict | None = None) -> None:
-    """Save the filter state (and the tracker state and a JSON-able stream
-    cursor, if given) to ``path``.  Reads the tensors to the host, so on the
-    card it waits for the work that writes them."""
+                    cursor: dict | None = None, rng_key=None) -> None:
+    """Save the filter state (and the tracker state, a JSON-able stream
+    cursor and an RNG key, if given) to ``path``.  ``rng_key`` is raw key
+    data (an integer array or tensor of uint32 values), stored as uint32
+    under the JAX package's ``rng_key``, where ``jax.random.wrap_key_data``
+    reads it back.  Reads the tensors to the host, so on the card it waits
+    for the work that writes them."""
     out = _flatten_state(state)
     if tracker is not None:
         out["trk.positions"] = _np(tracker.positions)
@@ -81,15 +84,20 @@ def save_checkpoint(path: str, state: F.EqFState, tracker: TrackerState | None =
         out["trk.next_id"] = _ids32(tracker.next_id)
         for level, img in enumerate(tracker.pyramid):
             out[f"trk.pyr{level}"] = _np(img)
+    if rng_key is not None:
+        key = np.asarray(_np(rng_key) if isinstance(rng_key, torch.Tensor) else rng_key)
+        if key.dtype.kind not in "iu" or (key.size and (key.min() < 0 or key.max() > np.iinfo(np.uint32).max)):
+            raise ValueError(f"rng_key is not uint32 key data: {key.dtype} {key.ravel()[:4]}")
+        out["rng_key"] = key.astype(np.uint32)
     out["cursor_json"] = np.frombuffer(json.dumps(cursor or {}).encode(), dtype=np.uint8)
     np.savez(path, **out)
 
 
-def load_checkpoint(path: str, dtype: torch.dtype | None = None, device="cpu"):
+def load_checkpoint(path: str, dtype: torch.dtype | None = None, device="cuda"):
     """``(state, tracker or None, cursor, rng key data or None)`` on
     ``device``; the filter in ``dtype`` (default: the saved one), ids int64,
     the tracker's ``searched`` True.  A JAX package's ``rng_key`` comes back
-    as its raw key data."""
+    as its raw key data (uint32, on the host)."""
     d = dict(np.load(path, allow_pickle=False))
     state = _unflatten_state(d, dtype, device)
     tracker = None
@@ -150,7 +158,7 @@ def state_to_csv_line(state: F.EqFState, settings: F.Settings) -> str:
 
 
 def state_from_csv_line(line: str, capacity: int, settings: F.Settings, dtype: torch.dtype = torch.float64,
-                        t: float = 0.0, device="cpu") -> F.EqFState:
+                        t: float = 0.0, device="cuda") -> F.EqFState:
     """Parse a :func:`state_to_csv_line` line into a ``capacity``-slot state
     stamped ``t``: landmarks in slots ``0..N-1``, the inactive rest of Sigma
     identity (its factor in square-root mode)."""

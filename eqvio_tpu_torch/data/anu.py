@@ -67,6 +67,10 @@ class APDatasetReader:
         data = data[np.concatenate([[True], np.diff(data[:, 0]) > 1e-9])]
         return GroundTruth(data[:, 0], data[:, 1:4], data[:, 4:8], None)
 
+    def load_image(self, index: int) -> np.ndarray:
+        """Decode image ``index`` to grayscale float32 in [0, 1]."""
+        return self.load_image_u8(index).astype(np.float32) / 255.0
+
     def load_image_u8(self, index: int) -> np.ndarray:
         """Decode image ``index`` to grayscale uint8."""
         from PIL import Image

@@ -89,6 +89,10 @@ class ASLDatasetReader:
         vel = data[:, 8:11] if data.shape[1] >= 11 else None
         return GroundTruth(stamps, data[:, 1:4], data[:, 4:8], vel)
 
+    def load_image(self, index: int) -> np.ndarray:
+        """Decode image ``index`` to grayscale float32 in [0, 1]."""
+        return self.load_image_u8(index).astype(np.float32) / 255.0
+
     def load_image_u8(self, index: int) -> np.ndarray:
         """Decode image ``index`` to grayscale uint8."""
         from PIL import Image

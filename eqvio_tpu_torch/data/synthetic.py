@@ -128,8 +128,9 @@ class SyntheticASLReader:
                  imu_noise: dict | None = None, gt_freq: float | None = None, num_walls: int = 4,
                  wall_distance: float = 2.0, num_distractors: int = 0):
         f64 = torch.float64
+        # the frames are rendered on the host
         sim = Simulator.create(kind=kind, end_time=end_time + 1.0, num_points=num_points,
-                               num_walls=num_walls, seed=seed, wall_distance=wall_distance)
+                               num_walls=num_walls, seed=seed, wall_distance=wall_distance, device="cpu")
         if intrinsics is None:
             fx = fy = 200.0
             cx, cy = width / 2, height / 2
@@ -184,8 +185,9 @@ class SyntheticUZHFPVReader:
                  distortion: tuple = (0.01, -0.005, 0.001, 0.0), imu_noise: dict | None = None,
                  num_walls: int = 4, wall_distance: float = 2.0):
         f64 = torch.float64
+        # the frames are rendered on the host
         sim = Simulator.create(kind=kind, end_time=end_time + 1.0, num_points=num_points,
-                               num_walls=num_walls, wall_distance=wall_distance, seed=seed)
+                               num_walls=num_walls, wall_distance=wall_distance, seed=seed, device="cpu")
         if intrinsics is None:
             fx = fy = 140.0
             cx, cy = width / 2, height / 2
@@ -456,7 +458,7 @@ def generate_racing_proxy(out_dir: str, end_time: float = 60.0, seed: int = 13):
 
 
 def shifted_texture_pair(height: int, width: int, shift: tuple[int, int], seed: int = 5,
-                         device="cpu") -> tuple[torch.Tensor, torch.Tensor]:
+                         device="cuda") -> tuple[torch.Tensor, torch.Tensor]:
     """A smooth random texture in [0, 1] (bicubic noise at 64, 16 and 4 px
     scales) and its copy moved by the integer ``shift`` (x, y) px, wrapping
     at the borders: a float32 frame pair whose true motion is known

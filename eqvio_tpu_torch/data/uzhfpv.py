@@ -73,6 +73,10 @@ class UZHFPVDatasetReader:
         quat = np.stack([qxyzw[:, 3], qxyzw[:, 0], qxyzw[:, 1], qxyzw[:, 2]], axis=-1)
         return GroundTruth(data[:, 1], data[:, 2:5], quat, None)
 
+    def load_image(self, index: int) -> np.ndarray:
+        """Decode image ``index`` to grayscale float32 in [0, 1]."""
+        return self.load_image_u8(index).astype(np.float32) / 255.0
+
     def load_image_u8(self, index: int) -> np.ndarray:
         """Decode image ``index`` to grayscale uint8."""
         from PIL import Image

@@ -50,13 +50,14 @@ class VIOAlgebra(NamedTuple):
     W: torch.Tensor  # [N, 4]
 
 
-def group_identity(capacity: int, dtype: torch.dtype, device) -> VIOGroup:
+def group_identity(capacity: int, dtype: torch.dtype, device, batch_shape=()) -> VIOGroup:
+    batch_shape = tuple(batch_shape)
     return VIOGroup(
-        beta=torch.zeros(6, dtype=dtype, device=device),
-        A=se3_identity(dtype, device),
-        w=torch.zeros(3, dtype=dtype, device=device),
-        B=se3_identity(dtype, device),
-        Q=sot3_identity(dtype, device, (capacity,)),
+        beta=torch.zeros(*batch_shape, 6, dtype=dtype, device=device),
+        A=se3_identity(dtype, device, batch_shape),
+        w=torch.zeros(*batch_shape, 3, dtype=dtype, device=device),
+        B=se3_identity(dtype, device, batch_shape),
+        Q=sot3_identity(dtype, device, batch_shape + (capacity,)),
     )
 
 
@@ -82,6 +83,14 @@ def group_inv(x: VIOGroup) -> VIOGroup:
 
 def algebra_scale(lam: VIOAlgebra, c) -> VIOAlgebra:
     return VIOAlgebra(lam.u_beta * c, lam.U_A * c, lam.u_w * c, lam.U_B * c, lam.W * c)
+
+
+def algebra_add(a: VIOAlgebra, b: VIOAlgebra) -> VIOAlgebra:
+    return VIOAlgebra(a.u_beta + b.u_beta, a.U_A + b.U_A, a.u_w + b.u_w, a.U_B + b.U_B, a.W + b.W)
+
+
+def algebra_sub(a: VIOAlgebra, b: VIOAlgebra) -> VIOAlgebra:
+    return algebra_add(a, algebra_scale(b, -1.0))
 
 
 def group_exp(lam: VIOAlgebra) -> VIOGroup:
@@ -199,7 +208,9 @@ def group_has_nan(x: VIOGroup) -> torch.Tensor:
 __all__ = [
     "VIOAlgebra",
     "VIOGroup",
+    "algebra_add",
     "algebra_scale",
+    "algebra_sub",
     "group_element_between",
     "group_exp",
     "group_has_nan",

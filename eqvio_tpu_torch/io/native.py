@@ -66,6 +66,8 @@ def _aofstream() -> ctypes.CDLL | None:
         lib.aof_open.argtypes = [ctypes.c_char_p]
         lib.aof_write.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_size_t]
         lib.aof_close.argtypes = [ctypes.c_void_p]
+        lib.aof_flush_all.argtypes = []
+        lib.aof_flush_all.restype = None
         lib._bound = True
     return lib
 
@@ -97,3 +99,10 @@ class AsyncFile:
 
     def __del__(self):
         self.close()
+
+
+def flush_all() -> None:
+    """Flush every open :class:`AsyncFile`; nothing where the library does not build."""
+    lib = _aofstream()
+    if lib is not None:
+        lib.aof_flush_all()

@@ -154,6 +154,8 @@ class VIOWriter:
             with open(os.path.join(self.output_dir, name), "w") as f:
                 f.writelines(lines)
 
+    close = flush
+
     def __enter__(self):
         return self
 

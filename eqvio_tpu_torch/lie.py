@@ -173,6 +173,10 @@ class SE3(NamedTuple):
     R: torch.Tensor  # [..., 3, 3]
     x: torch.Tensor  # [..., 3]
 
+    @property
+    def batch_shape(self) -> torch.Size:
+        return self.x.shape[:-1]
+
 
 def se3_identity(dtype: torch.dtype, device, batch_shape=()) -> SE3:
     R = torch.eye(3, dtype=dtype, device=device).expand(*batch_shape, 3, 3).clone()
@@ -264,12 +268,24 @@ def sot3_inv(p: SOT3) -> SOT3:
     return SOT3(p.R.transpose(-1, -2), 1.0 / p.a)
 
 
+def sot3_apply(p: SOT3, x: torch.Tensor) -> torch.Tensor:
+    return p.a[..., None] * mv(p.R, x)
+
+
 def sot3_exp(u: torch.Tensor) -> SOT3:
     return SOT3(so3_exp(u[..., 0:3]), torch.exp(u[..., 3]))
 
 
 def sot3_log(p: SOT3) -> torch.Tensor:
     return torch.cat([so3_log(p.R), torch.log(p.a)[..., None]], dim=-1)
+
+
+def sot3_Adjoint_inv_of(p: SOT3) -> torch.Tensor:
+    """Adjoint of p^{-1} as a ``[..., 4, 4]`` matrix: blockdiag(R^T, 1)."""
+    out = p.R.new_zeros(p.R.shape[:-2] + (4, 4))
+    out[..., 0:3, 0:3] = p.R.transpose(-1, -2)
+    out[..., 3, 3] = 1.0
+    return out
 
 
 # ---------------------------------------------------------------------------

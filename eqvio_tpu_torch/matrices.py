@@ -275,6 +275,17 @@ def normal_euclid_point_blocks(p0: torch.Tensor) -> torch.Tensor:
     return torch.cat([top, -(y0 / r0[..., None])[..., None, :]], dim=-2)
 
 
+def normal_euclid_differential(xi0: VIOState) -> torch.Tensor:
+    """d(normal o euclid^-1) at 0 as a dense ``[D, D]`` matrix, assembled
+    from the sensor block and the per-landmark blocks (the suite itself
+    works block-wise)."""
+    N, D = xi0.capacity, xi0.dim()
+    M = xi0.landmarks.new_zeros(D, D)
+    M[:SENSOR_DIM, :SENSOR_DIM] = normal_euclid_sensor_differential(xi0)
+    M[SENSOR_DIM:, SENSOR_DIM:] = torch.block_diag(*normal_euclid_point_blocks(xi0.landmarks).unbind(0))
+    return M
+
+
 def euclid_normal_point_blocks(p0: torch.Tensor) -> torch.Tensor:
     """Per-landmark inverse blocks ``[N, 3, 3]``, analytic."""
     r0 = torch.clamp(torch.linalg.norm(p0, dim=-1), min=1e-12)

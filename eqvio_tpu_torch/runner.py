@@ -81,7 +81,7 @@ class SimRunResult(NamedTuple):
     consistency: tuple | None = None
 
 
-def default_sim_camera(dtype=torch.float64, device="cpu") -> PinholeCamera:
+def default_sim_camera(dtype=torch.float64, device="cuda") -> PinholeCamera:
     """EuRoC-like pinhole camera, 752x480."""
     return PinholeCamera.create(458.654, 457.296, 367.215, 248.375, 752, 480, dtype=dtype, device=device)
 
@@ -138,10 +138,11 @@ def prepare_sim_inputs(
     stays there; ``capacity`` becomes the world's size.
     """
     if sim is None:
+        # the inputs are built on the host and copied to the device once per run
         sim = Simulator.create(kind=kind, end_time=end_time + 1.0, seed=seed, num_walls=num_walls,
-                               num_points=num_points, dtype=dtype)
+                               num_points=num_points, dtype=dtype, device="cpu")
     if camera is None:
-        camera = default_sim_camera(dtype)
+        camera = default_sim_camera(dtype, device="cpu")  # host set-up, as the simulator
     if full_state:
         capacity = int(sim.world.shape[0])
     t = lambda a: torch.as_tensor(a, dtype=dtype)  # noqa: E731

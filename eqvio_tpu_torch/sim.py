@@ -58,7 +58,7 @@ def _stationary_start(t):
     return u - 2.0 * (1.0 - torch.exp(-u / 2.0))
 
 
-def trajectory_poses(kind: str, end_time: float, frequency: float, dtype=torch.float64, device="cpu"):
+def trajectory_poses(kind: str, end_time: float, frequency: float, dtype=torch.float64, device="cuda"):
     """Stamped poses ``[T]`` of a named trajectory: ``(t, SE3)``.
 
     Kinds: ``line``, ``wave``, ``sine``, ``square``, ``room`` (alias
@@ -194,7 +194,7 @@ class Simulator(NamedTuple):
 
     @staticmethod
     def create(kind="wave", end_time=60.0, pose_frequency=100.0, num_points=1000, wall_distance=2.0,
-               num_walls=1, seed=0, camera_offset: SE3 | None = None, dtype=torch.float64, device="cpu"):
+               num_walls=1, seed=0, camera_offset: SE3 | None = None, dtype=torch.float64, device="cuda"):
         t, poses = trajectory_poses(kind, end_time, pose_frequency, dtype, device)
         world = generate_world_points(poses.x.cpu().numpy(), num_points, wall_distance, num_walls, seed)
         if camera_offset is None:
@@ -207,7 +207,7 @@ class Simulator(NamedTuple):
 
     @staticmethod
     def from_poses(times, poses: SE3, camera_offset: SE3, num_points: int = 1000, wall_distance: float = 2.0,
-                   num_walls: int = 4, seed: int = 0, dtype=torch.float64, device="cpu") -> "Simulator":
+                   num_walls: int = 4, seed: int = 0, dtype=torch.float64, device="cuda") -> "Simulator":
         """A simulator around an arbitrary stamped trajectory (such as a
         dataset's ground truth)."""
         f = lambda a: torch.as_tensor(a, dtype=dtype, device=device).contiguous()  # noqa: E731
@@ -325,7 +325,7 @@ class SlotTrackerState(NamedTuple):
     slot_ids: torch.Tensor  # [N] world-point id per slot, -1 when free
 
 
-def slot_tracker_init(capacity: int, device="cpu") -> SlotTrackerState:
+def slot_tracker_init(capacity: int, device="cuda") -> SlotTrackerState:
     return SlotTrackerState(torch.full((capacity,), -1, dtype=torch.int64, device=device))
 
 

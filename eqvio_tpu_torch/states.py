@@ -29,11 +29,12 @@ class IMU(NamedTuple):
     acc_bias_vel: torch.Tensor  # [..., 3]
 
     @staticmethod
-    def create(stamp, gyr, acc, dtype: torch.dtype, device) -> "IMU":
+    def create(stamp, gyr, acc, dtype: torch.dtype, device, gyr_bias_vel=None, acc_bias_vel=None) -> "IMU":
+        """An IMU reading; the bias velocities are zero unless given."""
         gyr = torch.as_tensor(gyr, dtype=dtype, device=device)
         acc = torch.as_tensor(acc, dtype=dtype, device=device)
-        z = torch.zeros_like(gyr)
-        return IMU(torch.as_tensor(stamp, dtype=dtype, device=device), gyr, acc, z, z)
+        t = lambda a: torch.zeros_like(gyr) if a is None else torch.as_tensor(a, dtype=dtype, device=device)  # noqa: E731
+        return IMU(torch.as_tensor(stamp, dtype=dtype, device=device), gyr, acc, t(gyr_bias_vel), t(acc_bias_vel))
 
 
 class VIOSensorState(NamedTuple):
@@ -61,21 +62,23 @@ class VIOState(NamedTuple):
         return SENSOR_DIM + 3 * self.capacity
 
 
-def sensor_identity(dtype: torch.dtype, device) -> VIOSensorState:
+def sensor_identity(dtype: torch.dtype, device, batch_shape=()) -> VIOSensorState:
+    batch_shape = tuple(batch_shape)
     return VIOSensorState(
-        bias=torch.zeros(6, dtype=dtype, device=device),
-        pose=se3_identity(dtype, device),
-        velocity=torch.zeros(3, dtype=dtype, device=device),
-        camera_offset=se3_identity(dtype, device),
+        bias=torch.zeros(*batch_shape, 6, dtype=dtype, device=device),
+        pose=se3_identity(dtype, device, batch_shape),
+        velocity=torch.zeros(*batch_shape, 3, dtype=dtype, device=device),
+        camera_offset=se3_identity(dtype, device, batch_shape),
     )
 
 
-def state_identity(capacity: int, dtype: torch.dtype, device) -> VIOState:
+def state_identity(capacity: int, dtype: torch.dtype, device, batch_shape=()) -> VIOState:
+    batch_shape = tuple(batch_shape)
     return VIOState(
-        sensor=sensor_identity(dtype, device),
-        landmarks=torch.tensor(DUMMY_POINT, dtype=dtype, device=device).repeat(capacity, 1),
-        ids=torch.full((capacity,), -1, dtype=torch.int64, device=device),
-        mask=torch.zeros(capacity, dtype=torch.bool, device=device),
+        sensor=sensor_identity(dtype, device, batch_shape),
+        landmarks=torch.tensor(DUMMY_POINT, dtype=dtype, device=device).repeat(*batch_shape, capacity, 1),
+        ids=torch.full((*batch_shape, capacity), -1, dtype=torch.int64, device=device),
+        mask=torch.zeros(*batch_shape, capacity, dtype=torch.bool, device=device),
     )
 
 

@@ -118,7 +118,7 @@ def ground_truth(scene: str, stamps):
 
     s = SCENES[scene]
     sim = Simulator.create(kind=s["kind"], end_time=s["end_time"] + 1.0, num_points=s["num_points"], num_walls=6,
-                           seed=s["seed"], wall_distance=s["wall_distance"])
+                           seed=s["seed"], wall_distance=s["wall_distance"], device="cpu")
     gt_times = np.arange(0.2, s["end_time"], 0.01)  # the generators' 100 Hz ground truth
     pose, _ = sim.true_pose_velocity(torch.as_tensor(gt_times, dtype=torch.float64))
     gp = pose.x.numpy()

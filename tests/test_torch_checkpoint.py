@@ -85,14 +85,14 @@ def test_round_trip_state_and_tracker(tmp_path, sqrt):
                                next_id=torch.tensor(10), pyramid=tuple(torch.rand_like(p) for p in tracker.pyramid))
     path = str(tmp_path / "ck.npz")
     tck.save_checkpoint(path, state, tracker, {"frames": 42, "imu_buf": [[1.0, [0.1, 0.2, 0.3], [0, 0, 9.8]]]})
-    st2, trk2, cursor, key = tck.load_checkpoint(path)
+    st2, trk2, cursor, key = tck.load_checkpoint(path, device="cpu")
     assert cursor == {"frames": 42, "imu_buf": [[1.0, [0.1, 0.2, 0.3], [0, 0, 9.8]]]} and key is None
     _assert_states_equal(state, st2)
     assert st2.xi0.ids.dtype == trk2.ids.dtype == torch.int64 and st2.Sigma.dtype == torch.float64
     for name in ("positions", "ids", "mask", "next_id"):
         assert torch.equal(getattr(tracker, name), getattr(trk2, name)), name
     assert all(torch.equal(p, q) for p, q in zip(tracker.pyramid, trk2.pyramid)) and bool(trk2.searched)
-    st32, _, _, _ = tck.load_checkpoint(path, dtype=torch.float32)
+    st32, _, _, _ = tck.load_checkpoint(path, dtype=torch.float32, device="cpu")
     assert st32.Sigma.dtype == torch.float32 and st32.xi0.ids.dtype == torch.int64
 
 
@@ -109,7 +109,7 @@ def test_csv_line_matches_jax(sqrt):
         np.testing.assert_allclose(vt, vj, rtol=1e-13, atol=1e-12)
     else:
         assert line_t == line_j
-    back_t = tck.state_from_csv_line(line_j, N, settings_t, t=1.25)
+    back_t = tck.state_from_csv_line(line_j, N, settings_t, t=1.25, device="cpu")
     back_j = jck.state_from_csv_line(line_j, N, settings_j, dtype=jnp.float64, t=1.25)
     fj, ft = _flat(back_j), _flat(back_t)
     for k in fj:
@@ -122,7 +122,7 @@ def test_jax_file_loads_into_port(tmp_path):
     trk_j = trk_j._replace(ids=jnp.asarray([4, -1, 6, 1, -1, 0], jnp.int32), next_id=jnp.asarray(11, jnp.int32))
     path = str(tmp_path / "jax.npz")
     jck.save_checkpoint(path, st_j, trk_j, {"frames": 16, "t_prev": 2.5})
-    st_t, trk_t, cursor, _ = tck.load_checkpoint(path)
+    st_t, trk_t, cursor, _ = tck.load_checkpoint(path, device="cpu")
     assert cursor == {"frames": 16, "t_prev": 2.5}
     _assert_states_equal(st_j, st_t)
     assert trk_t.ids.dtype == torch.int64 and trk_t.ids.tolist() == [4, -1, 6, 1, -1, 0] and int(trk_t.next_id) == 11
@@ -144,6 +144,39 @@ def test_port_file_loads_into_jax(tmp_path):
     np.testing.assert_array_equal(np.asarray(trk_j.positions), trk_t.positions.numpy())
     with np.load(path) as z:
         assert z["xi0.ids"].dtype == z["trk.ids"].dtype == np.int32
+
+
+def _key_data(kind):
+    """Raw key data of ``jax.random.key(7)`` in the form the port takes."""
+    import jax
+
+    data = np.asarray(jax.random.key_data(jax.random.key(7)))
+    return {"numpy": data, "int64": torch.tensor(data.astype(np.int64)),
+            "uint32": torch.tensor(data.view(np.int32)).view(torch.uint32)}[kind]
+
+
+@pytest.mark.parametrize("kind", ["numpy", "int64", "uint32"])
+def test_port_rng_key_loads_into_jax(tmp_path, kind):
+    """A key written by the port (raw key data as a uint32 array or an
+    integer tensor) loads in ``eqvio_tpu`` and round-trips through
+    ``jax.random.key_data``; the port reads it back as that data."""
+    import jax
+
+    st_t, _ = _torch_state(False, seed=5)
+    path = str(tmp_path / "key.npz")
+    tck.save_checkpoint(path, st_t, rng_key=_key_data(kind))
+    want = np.asarray(jax.random.key_data(jax.random.key(7)))
+    st_j, _, _, key_j = jck.load_checkpoint(path)
+    _assert_states_equal(st_t, st_j)
+    got = np.asarray(jax.random.key_data(key_j))
+    assert got.dtype == want.dtype == np.uint32
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(jax.random.normal(key_j, (3,)), jax.random.normal(jax.random.key(7), (3,)))
+    _, _, _, key_t = tck.load_checkpoint(path, device="cpu")
+    assert key_t.dtype == np.uint32
+    np.testing.assert_array_equal(key_t, want)
+    with pytest.raises(ValueError, match="uint32"):
+        tck.save_checkpoint(path, st_t, rng_key=torch.tensor([-1, 3]))
 
 
 @pytest.fixture(scope="module")

@@ -240,6 +240,70 @@ def test_invdepth_suite_matches_jax(case, model):
     assert_tree_close(out_j, out_t, TOL, case)
 
 
+# ---------------------------------------------------------------------------
+# the public names the surface audit found missing, ported in one slice
+# ---------------------------------------------------------------------------
+
+
+class _Pkg:
+    """One package's modules and its creation arguments (the port takes a
+    dtype and a device where ``eqvio_tpu`` takes a dtype or nothing)."""
+
+    def __init__(self, jax_side):
+        self.jax = jax_side
+        self.L, self.G, self.S, self.Cam, self.M = (JL, JG, JS, JCam, JM) if jax_side else (TL, TG, TS, TCam, TM)
+        self.arr = jnp.asarray if jax_side else tt
+        self.dtype = jnp.float64 if jax_side else F64
+        self.dev = {} if jax_side else {"device": "cpu"}
+
+
+def _surface_inputs(p: _Pkg):
+    rng = np.random.default_rng(21)
+    u4 = p.arr(rng.normal(size=(6, 4)) * 0.7)
+    x = p.arr(rng.normal(size=(6, 3)))
+    lam = [p.G.VIOAlgebra(*(p.arr(rng.normal(size=s) * 0.2) for s in ((6,), (6,), (3,), (6,), (5, 4))))
+           for _ in range(2)]
+    imu = [p.arr(v) for v in (0.25, rng.normal(size=3), rng.normal(size=3), rng.normal(size=3),
+                              rng.normal(size=3))]
+    xi = reasonable_state(np.random.default_rng(22), 5, 4)
+    if not p.jax:
+        xi = convert.vio_state_from_numpy(xi, F64, "cpu")
+    return u4, x, lam, imu, xi
+
+
+SURFACE_CASES = {
+    "lie.sot3_apply": lambda p, u4, x, lam, imu, xi: p.L.sot3_apply(p.L.sot3_exp(u4), x),
+    "lie.sot3_Adjoint_inv_of": lambda p, u4, x, lam, imu, xi: p.L.sot3_Adjoint_inv_of(p.L.sot3_exp(u4)),
+    "lie.SE3.batch_shape": lambda p, u4, x, lam, imu, xi: np.asarray(tuple(
+        p.L.se3_exp(p.arr(np.arange(36.0).reshape(2, 3, 6) * 0.01)).batch_shape)),
+    "group.algebra_add": lambda p, u4, x, lam, imu, xi: p.G.algebra_add(*lam),
+    "group.algebra_sub": lambda p, u4, x, lam, imu, xi: p.G.algebra_sub(*lam),
+    "group.group_identity(batch_shape)": lambda p, u4, x, lam, imu, xi: p.G.group_identity(
+        5, dtype=p.dtype, batch_shape=(2, 3), **p.dev),
+    "states.sensor_identity(batch_shape)": lambda p, u4, x, lam, imu, xi: p.S.sensor_identity(
+        dtype=p.dtype, batch_shape=(3,), **p.dev),
+    "states.state_identity(batch_shape)": lambda p, u4, x, lam, imu, xi: p.S.state_identity(
+        4, dtype=p.dtype, batch_shape=(2,), **p.dev),
+    "states.IMU.create(bias_vel)": lambda p, u4, x, lam, imu, xi: p.S.IMU.create(
+        *imu[:3], gyr_bias_vel=imu[3], acc_bias_vel=imu[4], **({} if p.jax else {"dtype": F64, "device": "cpu"})),
+    "states.IMU.create": lambda p, u4, x, lam, imu, xi: p.S.IMU.create(
+        *imu[:3], **({} if p.jax else {"dtype": F64, "device": "cpu"})),
+    "camera.default_test_camera": lambda p, u4, x, lam, imu, xi: p.Cam.default_test_camera(p.dtype, **p.dev),
+    "matrices.normal_euclid_differential": lambda p, u4, x, lam, imu, xi: p.M.normal_euclid_differential(xi),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SURFACE_CASES))
+def test_surface_items_match_jax(case):
+    """Each name or parameter the surface audit found missing matches its
+    ``eqvio_tpu`` counterpart in float64 at 1e-12 (integers, shapes and
+    the camera's image size exactly)."""
+    pj, pt = _Pkg(True), _Pkg(False)
+    out_j = SURFACE_CASES[case](pj, *_surface_inputs(pj))
+    out_t = SURFACE_CASES[case](pt, *_surface_inputs(pt))
+    assert_tree_close(out_j, out_t, TOL, case)
+
+
 def test_get_suite_names_roadmap_for_unported_suites():
     """Every coordinate choice the configs name has its suite (the Euclidean
     and Normal suites were once unported and raised)."""
@@ -435,7 +499,7 @@ def test_sim_scene_matches_jax(kind):
     """Trajectory, world points, interpolated poses, IMU and true state of
     the synthetic scene (rendered frames are checked in test_torch_run_opt)."""
     sj = JSim.Simulator.create(kind=kind, end_time=6.0, num_points=50, num_walls=4, seed=3)
-    st = TSim.Simulator.create(kind=kind, end_time=6.0, num_points=50, num_walls=4, seed=3)
+    st = TSim.Simulator.create(kind=kind, end_time=6.0, num_points=50, num_walls=4, seed=3, device="cpu")
     assert_tree_close((sj.times, sj.poses, sj.world, sj.camera_offset),
                       (st.times, st.poses, st.world, st.camera_offset), TOL, "scene")
     ts = np.arange(0.2, 5.0, 0.137)

@@ -149,12 +149,13 @@ def test_racing_trajectory_matches_jax():
     difference of the positions at 100 Hz (speed, then its gradient), which
     scales an ulp of ``sin`` by about 1e4: attitudes to 1e-11."""
     tj, pj = JSim.trajectory_poses("racing", 61.0, 100.0)
-    tt_, pt = TSim.trajectory_poses("racing", 61.0, 100.0)
+    tt_, pt = TSim.trajectory_poses("racing", 61.0, 100.0, device="cpu")
     np.testing.assert_array_equal(tt_.numpy(), np.asarray(tj))
     np.testing.assert_allclose(pt.x.numpy(), np.asarray(pj.x), atol=1e-12, rtol=0)
     np.testing.assert_allclose(pt.R.numpy(), np.asarray(pj.R), atol=1e-11, rtol=0)
     sj = JSim.Simulator.create(kind="racing", end_time=12.0, num_points=200, num_walls=6, wall_distance=4.0, seed=13)
-    st = TSim.Simulator.create(kind="racing", end_time=12.0, num_points=200, num_walls=6, wall_distance=4.0, seed=13)
+    st = TSim.Simulator.create(kind="racing", end_time=12.0, num_points=200, num_walls=6, wall_distance=4.0, seed=13,
+                               device="cpu")
     np.testing.assert_array_equal(st.world.numpy(), np.asarray(sj.world))
     ts = np.arange(3.5, 11.0, 0.31)
     imu_j = sj.get_imu_batch(jnp.asarray(ts))

@@ -218,7 +218,7 @@ def test_sharded_update_matches_jax_and_local(launches, name):
             assert torch.equal(a, b), f"rank {r}"
     got = tree_unflatten(leaves[0], spec)
     local = F.update_vision(state_t, torch.tensor(np.asarray(pixels)), torch.tensor(np.asarray(vis)),
-                            default_sim_camera(tdtype), settings_t)
+                            default_sim_camera(tdtype, "cpu"), settings_t)
 
     tol_sigma, tol_x = {"dense64": (1e-9, 1e-10), "sqrt32": (1e-4, 1e-4), "sqrt64": (1e-9, 1e-9)}[name]
     for ref in (ref_jax, local):

@@ -314,3 +314,45 @@ def test_streaming_writer_matches_plain(tmp_path):
         plain = open(os.path.join(dirs["plain"], name)).read()
         assert open(os.path.join(dirs["stream"], name)).read() == plain == \
             open(os.path.join(dirs["jax"], name)).read(), name
+
+
+@pytest.mark.parametrize("mode", ["asl", "uzhfpv", "anu"])
+def test_load_image_matches_jax(trees, tmp_path, mode):
+    """``load_image`` decodes to float32 in [0, 1]: ``load_image_u8 / 255``
+    and the JAX reader's frames, bit for bit."""
+    if mode == "anu":
+        base = _anu_tree(str(tmp_path))
+        rt, rj = create_dataset_reader("anu", base), janu.APDatasetReader(base)
+    else:
+        from eqvio_tpu.data import create_dataset_reader as jcreate
+
+        _, t = trees["asl" if mode == "asl" else "uzh"]
+        rt, rj = create_dataset_reader(mode, str(t)), jcreate(mode, str(t))
+    assert len(rt.images.stamps) == len(rj.images.stamps) >= 3
+    for i in range(len(rt.images.stamps)):
+        img = rt.load_image(i)
+        assert img.dtype == np.float32 and 0.0 <= img.min() and img.max() <= 1.0
+        np.testing.assert_array_equal(img, rt.load_image_u8(i).astype(np.float32) / 255.0)
+        np.testing.assert_array_equal(img, rj.load_image(i), err_msg=f"frame {i}")
+
+
+def test_flush_all_and_close_match_jax(tmp_path):
+    """``native.flush_all`` writes what every open stream holds (a no-op
+    where the library does not build, as in the JAX package), and
+    ``VIOWriter.close`` is its ``flush``."""
+    from eqvio_tpu.io import native as jnative
+
+    tnative.flush_all()
+    jnative.flush_all()
+    if tnative.available():
+        path = str(tmp_path / "stream.txt")
+        f = tnative.AsyncFile(path)
+        f.write("one\ntwo\n")
+        tnative.flush_all()
+        assert open(path).read() == "one\ntwo\n"
+        f.close()
+    for cls, sub in ((VIOWriter, "t"), (JWriter, "j")):
+        w = cls(str(tmp_path / sub))
+        w.write_timing(1.0, {"total": 2e-3})
+        w.close()
+    assert open(tmp_path / "t" / "timing.csv").read() == open(tmp_path / "j" / "timing.csv").read()

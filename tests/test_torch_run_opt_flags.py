@@ -76,6 +76,76 @@ def test_sim_flags_match_jax(tree, tmp_path, monkeypatch, flag, chunk):
     assert len(rows_t["states"]) == FRAMES
 
 
+@pytest.mark.parametrize("override", [{"imu_window": 16}, {"camera_lag": 0.004}], ids=["imu_window", "camera_lag"])
+def test_window_and_lag_overrides_match_jax(tree, tmp_path, monkeypatch, override):
+    """``imu_window`` and ``camera_lag`` override the derived window and the
+    config's lag as in ``eqvio_tpu``: the same rows over 20 frames (the
+    port's fused path against the JAX per-frame loop, positions within
+    1e-6 m), and rows that differ from the run without the override (a
+    window of 16 drops samples of the tree's 20 per frame; the derived one
+    is 28)."""
+    rows_j, rows_t, rows_0 = {}, {}, {}
+    monkeypatch.setattr(jax_run_opt, "VIOWriter", _recording_writer(jax_run_opt.VIOWriter, rows_j))
+    cfg = _config()
+    _, sum_j = jax_run_opt.run_dataset(tree, cfg, output_dir=str(tmp_path / "j"), chunk_size=1,
+                                       limit_frames=FRAMES, dtype=jnp.float64, **override)
+    writer = torch_run_opt.VIOWriter
+    for rows, kw in ((rows_t, override), (rows_0, {})):
+        monkeypatch.setattr(torch_run_opt, "VIOWriter", _recording_writer(writer, rows))
+        _, sum_t = torch_run_opt.run_dataset(tree, cfg, output_dir=str(tmp_path / "t"), chunk_size=8,
+                                             limit_frames=FRAMES, device="cpu", **kw)
+        assert sum_t["frames"] == FRAMES and sum_t["healthy"]
+    assert sum_j["frames"] == FRAMES and len(rows_t["states"]) == len(rows_j["states"]) == FRAMES
+    for k, ((tj, pj), (tt, pt)) in enumerate(zip(rows_j["states"], rows_t["states"])):
+        assert tj == tt
+        np.testing.assert_allclose(pt, pj, atol=1e-6, rtol=0, err_msg=f"frame {k} position")
+    if "camera_lag" in override:
+        assert [t for t, _ in rows_t["states"]] != [t for t, _ in rows_0["states"]]
+    else:
+        assert any(not np.array_equal(a[1], b[1]) for a, b in zip(rows_t["states"], rows_0["states"]))
+
+
+def test_explicit_window_and_lag_reproduce_defaults(tree):
+    """``imu_window`` equal to the derived value and ``camera_lag`` equal to
+    the config's ``cameraLag`` give the default run's numbers bit for bit;
+    a lag given with a reader object shifts a copy of its stamps, as a
+    path's reader is shifted, and leaves the caller's reader as it was."""
+    from eqvio_tpu_torch.data import create_dataset_reader
+
+    cfg = _config()
+    cfg_lag = {**cfg, "main": {**(cfg.get("main") or {}), "cameraLag": 0.004}}
+    window = torch_run_opt._setup(create_dataset_reader("asl", tree), cfg, torch.float64, "cpu")[-1]
+    assert window == 28
+    run = lambda data, config, **kw: torch_run_opt.run_dataset(  # noqa: E731
+        data, config, chunk_size=8, limit_frames=12, device="cpu", **kw)[1]
+    reader = create_dataset_reader("asl", tree)
+    stamps = reader.images.stamps.copy()
+    base = run(tree, cfg_lag)
+    for s in (run(tree, cfg_lag, imu_window=window), run(tree, cfg, camera_lag=0.004),
+              run(reader, cfg, camera_lag=0.004)):
+        np.testing.assert_array_equal(s["stamps"], base["stamps"])
+        np.testing.assert_array_equal(s["positions"], base["positions"])
+        np.testing.assert_array_equal(s["feature_ids"], base["feature_ids"])
+    np.testing.assert_array_equal(reader.images.stamps, stamps)
+    assert not np.array_equal(run(reader, cfg)["stamps"], base["stamps"])
+
+
+def test_display_flag_is_accepted():
+    """``--display`` is accepted and ignored, as in ``eqvio_tpu``'s CLI."""
+    from unittest import mock
+
+    seen = {}
+
+    def fake_run(dataset, config, **kwargs):
+        seen.update(kwargs)
+        return None, {"healthy": True, "frames": 0, "fps": 0.0, "landmarks": 0}
+
+    with mock.patch.object(torch_run_opt, "load_config", return_value={}), \
+            mock.patch.object(torch_run_opt, "run_dataset", side_effect=fake_run):
+        torch_run_opt.main(["dataset_dir", "config.yaml", "--display", "--device", "cpu"])
+    assert seen["device"] == "cpu" and "display" not in seen
+
+
 def test_sim_flags_need_ground_truth_and_fused_options(tree):
     from eqvio_tpu_torch.data import create_dataset_reader
 

@@ -42,20 +42,21 @@ KINDS = ["line", "wave", "sine", "square", "room", "v101", "mh", "machine_hall"]
 @pytest.mark.parametrize("kind", KINDS)
 def test_trajectory_kinds_match_jax(kind):
     tj, pj = JSim.trajectory_poses(kind, 70.0, 100.0)
-    tt_, pt = TSim.trajectory_poses(kind, 70.0, 100.0)
+    tt_, pt = TSim.trajectory_poses(kind, 70.0, 100.0, device="cpu")
     np.testing.assert_array_equal(tt_.numpy(), np.asarray(tj))
     assert_tree_close(pj, pt, 1e-12, kind)
 
 
 def test_unknown_trajectory_kind_raises():
-    for mod in (JSim, TSim):
-        with pytest.raises(ValueError, match="unknown trajectory"):
-            mod.trajectory_poses("spiral", 5.0, 100.0)
+    with pytest.raises(ValueError, match="unknown trajectory"):
+        JSim.trajectory_poses("spiral", 5.0, 100.0)
+    with pytest.raises(ValueError, match="unknown trajectory"):
+        TSim.trajectory_poses("spiral", 5.0, 100.0, device="cpu")
 
 
 def _sims(kind, **kw):
     args = dict(kind=kind, end_time=8.0, num_points=120, num_walls=4, seed=3, **kw)
-    return JSim.Simulator.create(**args), TSim.Simulator.create(**args)
+    return JSim.Simulator.create(**args), TSim.Simulator.create(**args, device="cpu")
 
 
 @pytest.mark.parametrize("kind", ["line", "mh"])
@@ -76,7 +77,7 @@ def test_simulator_queries_match_jax(kind):
     np.testing.assert_array_equal(full_t.mask.numpy(), np.asarray(full_j.mask))
 
     cam_j = JR.default_sim_camera()
-    cam_t = TR.default_sim_camera()
+    cam_t = TR.default_sim_camera(device="cpu")
     pts_j, sel_j = jax.vmap(lambda t: sj.get_vision(t, cam_j, 12))(jnp.asarray(ts))
     pts_t, sel_t = st.get_vision(tt(ts), cam_t, 12)
     assert_tree_close(pts_j, pts_t, 1e-12, "camera points")
@@ -93,7 +94,7 @@ def test_from_poses_matches_jax():
     fj = JSim.Simulator.from_poses(sj.times[::3], jax.tree.map(lambda a: a[::3], sj.poses), sj.camera_offset,
                                    num_points=90, num_walls=6, seed=4)
     ft = TSim.Simulator.from_poses(st.times[::3], TSim.SE3(st.poses.R[::3], st.poses.x[::3]), st.camera_offset,
-                                   num_points=90, num_walls=6, seed=4)
+                                   num_points=90, num_walls=6, seed=4, device="cpu")
     assert_tree_close((fj.times, fj.poses, fj.world), (ft.times, ft.poses, ft.world), 1e-12, "from_poses")
     ts = np.arange(0.3, 5.0, 0.3)
     assert_tree_close(fj.get_imu_batch(jnp.asarray(ts)), ft.get_imu_batch(tt(ts)), 1e-9, "from_poses imu")
@@ -117,9 +118,9 @@ def test_slot_trackers_and_gathers_match_jax(capacity, max_features):
     slot ids, visibility and ids exactly, pixels and points to 1e-12."""
     rng = np.random.default_rng(capacity)
     P = 40
-    cam_j, cam_t = JR.default_sim_camera(), TR.default_sim_camera()
+    cam_j, cam_t = JR.default_sim_camera(), TR.default_sim_camera(device="cpu")
     tj = tjc = JSim.slot_tracker_init(capacity)
-    ts = tsc = TSim.slot_tracker_init(capacity)
+    ts = tsc = TSim.slot_tracker_init(capacity, device="cpu")
     for k, sel in enumerate(_selections(rng, P, 30)):
         rank = np.cumsum(sel) - 1
         sel = sel & (rank < max_features)
