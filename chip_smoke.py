@@ -184,6 +184,18 @@ Phases, each printing one line; any failure exits nonzero before the result:
    with an ``rng_key`` made on the card is saved and loaded back: the same
    state and key.  Prints the phase's seconds.
 
+15. bench: the port's benchmark programs as a user runs them, each in its
+   own process: ``python -m eqvio_tpu_torch.bench`` with ``BENCH_REPS=3``
+   (the 30 s benchmark tree written to ``build/`` and read from files, the
+   KLT gate on its frames 40 and 41, the 8-lane batch, the simulation at 1
+   and 128 lanes; the other sizes at their defaults), then ``python -m
+   eqvio_tpu_torch.bench_kernels``.  Each must exit 0 with every number of
+   its line finite and ``device_kind`` naming the card and its power limit
+   as ``nvidia-smi`` prints them; the bench's line must be healthy, its
+   gate within 2e-4 px of the plain version with equal masks and one
+   kernel launch.  Prints both lines and the phase's seconds; the tree is
+   removed after the phase.
+
 Every fused run also counts one eager frame step's operations and bytes
 (``cost.py``; the summary's ``flops_per_frame``): the KLT wrapper counts that
 step's launch beside the warm-ups before each capture.
@@ -1208,6 +1220,66 @@ def phase_surface(reader, cfg, cpu, state_f, card) -> float:
     return secs
 
 
+BENCH_TIMEOUT_S = 900  # each bench process
+BENCH_REPS = 3
+
+
+def _bench_line(module: str, card: str) -> dict:
+    """Run ``python -m module`` from the checkout; its last line, held to
+    exit 0, finite numbers, no error and ``device_kind`` naming the card."""
+    from eqvio_tpu_torch.bench import _finite
+
+    env = dict(os.environ, BENCH_REPS=str(BENCH_REPS))
+    res = subprocess.run([sys.executable, "-m", module], cwd=HERE, env=env, capture_output=True, text=True,
+                         timeout=BENCH_TIMEOUT_S)
+    lines = res.stdout.strip().splitlines()
+    try:
+        out = json.loads(lines[-1])
+    except (IndexError, ValueError):
+        out = None
+    if res.returncode != 0 or not isinstance(out, dict):
+        fail(f"bench: python -m {module} exited {res.returncode}; stdout {res.stdout[-3000:]!r}; "
+             f"stderr {res.stderr[-6000:]!r}")
+    sec = out.get("secondary", out)
+    errors = [k for k in sec if k.endswith("_error") or k == "error"]
+    if errors or not _finite(out) or sec.get("device_kind") != card:
+        fail(f"bench: python -m {module}: errors {errors}, device_kind {sec.get('device_kind')!r} (card "
+             f"{card!r}), non-finite numbers in {json.dumps(out)}")
+    return out
+
+
+def phase_bench(card) -> dict:
+    """Phase 15 (see the module docstring); returns the two lines and the
+    phase's seconds."""
+    import shutil
+
+    import numpy as np
+
+    from eqvio_tpu_torch import bench as TB
+
+    t0 = time.perf_counter()
+    bench = _bench_line("eqvio_tpu_torch.bench", card)
+    sec = bench["secondary"]
+    if bench["healthy"] is not True or not sec.get("klt_kernel_masks_equal") or \
+            not sec.get("klt_kernel_max_px_diff", np.inf) <= KERNEL_TOL_PX or sec.get("klt_kernel_launches") != 1:
+        fail(f"bench: healthy {bench['healthy']}, KLT gate max |dpos| {sec.get('klt_kernel_max_px_diff')} px "
+             f"(limit {KERNEL_TOL_PX}), masks equal {sec.get('klt_kernel_masks_equal')}, launches "
+             f"{sec.get('klt_kernel_launches')}")
+    bench_s = time.perf_counter() - t0
+    kernels = _bench_line("eqvio_tpu_torch.bench_kernels", card)
+    shutil.rmtree(TB.BENCH_DATASET, ignore_errors=True)
+    secs = time.perf_counter() - t0
+    print(f"bench: {json.dumps(bench)}", flush=True)
+    print(f"bench_kernels: {json.dumps(kernels)}", flush=True)
+    print(f"bench: python -m eqvio_tpu_torch.bench (BENCH_REPS={BENCH_REPS}) healthy, "
+          f"full_frame_fps_single_seq {bench['value']} (reps {sec['fps_reps']}, each with its graph capture, "
+          f"{sec['capture_s']} s in the last), device {sec['device_ms_per_frame']} ms/frame, decoder "
+          f"{sec['decoder']}; KLT gate {sec['klt_kernel_max_px_diff']:.3g} px over {sec['klt_kernel_tracked']} "
+          f"features, masks equal, {sec['klt_kernel_launches']} launch; {bench_s:.1f} s; bench_kernels "
+          f"{secs - bench_s:.1f} s; the phase {secs:.1f} s ({card})", flush=True)
+    return {"bench": bench, "kernels": kernels, "s": secs}
+
+
 def main() -> None:
     t_smoke = time.perf_counter()
     if not os.path.isdir(os.path.join(HERE, "eqvio_tpu_torch")):
@@ -1654,8 +1726,14 @@ def main() -> None:
 
     # ---- 14. the public surface: defaults on the card, run_dataset's overrides --
     surface_s = phase_surface(reader, cfg, cpu, state_f, card)
-    print(f"smoke: {time.perf_counter() - t_smoke:.1f} s in all, the surface phase {surface_s:.1f} s ({card})",
-          flush=True)
+
+    # ---- 15. the benchmark programs: bench and bench_kernels, each in its process --
+    bn = phase_bench(card)
+    gate, bk = bn["bench"]["secondary"], bn["kernels"]
+    # the gate tracks its 30 detected corners through 4 levels of 752x480, phase 3's pyramid shapes
+    gate_bound, gate_bound_by = K.bound_ms(30, [tuple(p.shape) for p in pyr0], win, iters)
+    print(f"smoke: {time.perf_counter() - t_smoke:.1f} s in all, the surface phase {surface_s:.1f} s, the bench "
+          f"phase {bn['s']:.1f} s ({card})", flush=True)
 
     print(json.dumps({"kernels": [{
         "name": "klt_track_pyramid",
@@ -1748,6 +1826,19 @@ def main() -> None:
         "plain_ms": lanes_t["plain_ms"],
         "bound_ms": lanes_t["bound_ms"],
         "bound_by": lanes_t["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "klt_track_pyramid",
+        "shape": "bench KLT gate: frames 40-41 of the 30 s benchmark tree, 30 corners x 4 levels at 752x480",
+        "route": "cuda",
+        "source": "eqvio_tpu_torch/csrc/klt_cuda.cu",
+        "replaces": "eqvio_tpu/frontend/pallas_klt.py:106",
+        "launches": gate["klt_kernel_launches"],
+        "max_abs_err": gate["klt_kernel_max_px_diff"],
+        "ms": bk["klt_kernel_ms"],  # bench_kernels: graph replays at the same shape
+        "plain_ms": bk["klt_plain_ms"],
+        "bound_ms": gate_bound,
+        "bound_by": gate_bound_by,
         "library_ms": None,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

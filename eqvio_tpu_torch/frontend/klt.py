@@ -30,11 +30,18 @@ def track_features(
     features that left the image margin or whose mean residual reached
     ``max_error`` (GIFT ``maxError``).
     """
-    H, W = pyr_prev[0].shape
     guesses = positions if predicted is None else predicted
     new_pos, errs = klt_track_pyramid(
         list(pyr_prev), list(pyr_next), positions.contiguous(), guesses.contiguous(), win, iters
     )
+    return new_pos, tracked_mask(new_pos, errs, mask, pyr_prev[0].shape, win, max_error)
+
+
+def tracked_mask(new_pos, errs, mask, image_shape, win: int = 21, max_error: float = 0.05) -> torch.Tensor:
+    """The tracked-feature gate of :func:`track_features`: ``mask`` where
+    ``new_pos [N, 2]`` stays inside the image margin of ``image_shape (H,
+    W)`` and the mean residual ``errs [N]`` is below ``max_error``."""
+    H, W = image_shape
     margin = (win - 1) / 2 + 2
     inside = (
         (new_pos[:, 0] >= margin)
@@ -42,4 +49,4 @@ def track_features(
         & (new_pos[:, 1] >= margin)
         & (new_pos[:, 1] < H - margin)
     )
-    return new_pos, mask & inside & (errs < max_error)
+    return mask & inside & (errs < max_error)

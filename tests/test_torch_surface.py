@@ -12,6 +12,11 @@ method, and each command-line option an ``argparse`` parser adds. The port
 may add names and parameters. Private names (``_x``) are not audited.
 Every remaining difference is an entry of ``ALLOWED`` with its reason.
 
+The repository's root programs ``bench.py`` and ``bench_kernels.py`` are
+held the same way to their counterparts in the port: every top-level
+function (private ones too), its parameters and every upper-case constant,
+with the renames in ``ROOT_RENAMED``.
+
 A second test holds the port's device policy: no public function or method
 defaults ``device`` to the CPU.
 """
@@ -294,6 +299,58 @@ def test_surface_check_sees_a_removal(case):
         source = f.read()
     assert gap not in surface_gaps(rel, ast.parse(source))
     assert gap in surface_gaps(rel, ast.parse(mutate(source)))
+
+
+# the repository's programs at its root and their counterparts in the port;
+# "program:function" -> (the port's name, reason) for a function it renames
+ROOT_PAIRS = {"bench.py": "bench.py", "bench_kernels.py": "bench_kernels.py"}
+ROOT_RENAMED = {
+    "bench.py:_pallas_tracker_gate": ("_klt_gate", "the gate holds the CUDA KLT kernel, not the Pallas one, "
+                                                   "to its plain version"),
+}
+
+
+def root_gaps(program, port_tree=None):
+    """What the root program ``program`` defines and its port (its file, or
+    ``port_tree``) lacks: every top-level function, private ones included,
+    each of their parameters, and every upper-case module constant."""
+    jax = _Module(_parse(REPO, program))
+    port = _Module(port_tree if port_tree is not None else _parse(PORT_ROOT, ROOT_PAIRS[program]))
+    gaps = [f"name {n}" for n in sorted(jax.names - port.names) if n.isupper()]
+    for name, fn in sorted(jax.functions.items()):
+        mine = ROOT_RENAMED.get(f"{program}:{name}", (name,))[0]
+        if mine not in port.functions:
+            gaps.append(f"name {name}")
+        else:
+            gaps += _missing_params(program, name, fn, port, port.functions[mine])
+    return gaps
+
+
+@pytest.mark.parametrize("program", sorted(ROOT_PAIRS))
+def test_port_mirrors_root_program(program):
+    assert root_gaps(program) == []
+    for key, (mine, _) in ROOT_RENAMED.items():
+        rel, _, name = key.partition(":")
+        assert name in _Module(_parse(REPO, rel)).functions and mine in _Module(_parse(PORT_ROOT, rel)).functions
+
+
+ROOT_MUTATIONS = {
+    "function": ("bench.py", "def _prior_round_best(", "def _prior_round_best_gone(", "name _prior_round_best"),
+    "renamed": ("bench.py", "def _klt_gate(", "def _klt_gate_gone(", "name _pallas_tracker_gate"),
+    "parameter": ("bench_kernels.py", "def _time(f, *args, reps=50)", "def _time(f, *args)", "_time(reps)"),
+    "constant": ("bench.py", "\nREFERENCE_FPS = ", "\nREFERENCE_FPS_GONE = ", "name REFERENCE_FPS"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ROOT_MUTATIONS))
+def test_root_check_sees_a_removal(case):
+    """The root programs' audit reports a function, renamed function,
+    parameter or constant once it is gone from the port."""
+    program, old, new, gap = ROOT_MUTATIONS[case]
+    with open(os.path.join(PORT_ROOT, ROOT_PAIRS[program])) as f:
+        source = f.read()
+    assert gap not in root_gaps(program, ast.parse(source))
+    assert gap in root_gaps(program, ast.parse(_drop(source, old, new)))
 
 
 def _defaults(fn):
