@@ -43,13 +43,18 @@ Phases, each printing one line; any failure exits nonzero before the result:
    largest per-frame position difference to the card run must stay <= 0.05 m.
 6. fused: ``run_dataset(chunk_size=16)`` on ``cuda`` over the same scene,
    the frame step captured once as a CUDA graph and replayed per frame, with
-   the ``--timing`` stage calibration: finite and healthy, >= 10 landmarks;
-   over the first 20 frames the same tracked ids as the eager card run
-   (phase 4) with positions within 1e-4 m, and within 0.05 m of the CPU
-   float64 run (phase 5).  The run traces its chunk ``PROFILE_CHUNK`` alone
-   (``profile_chunk``: from an idle card to the end of its device work);
-   the trace must show ``klt_pyramid_kernel`` once in each graph launch
-   that the tracer recorded whole (:func:`traced_chunk`), and the KLT
+   ``--timing`` and ``trace`` (the step stamps its stages): finite and
+   healthy, >= 10 landmarks; over the first 20 frames the same tracked ids
+   as the eager card run (phase 4) with positions within 1e-4 m, and within
+   0.05 m of the CPU float64 run (phase 5).  The stamps (:func:`check_stamps`)
+   of consecutive frames never decrease, each frame lies between the start
+   of its chunk's dispatch and the moment its row was in hand, and the
+   stage sections of ``device_sections_ms`` sum to the frames' mean span
+   from ``frame_begin`` to ``vision_end``.  The run traces its chunk
+   ``PROFILE_CHUNK`` alone (``profile_chunk``: from an idle card to the end
+   of its device work); the trace must show ``klt_pyramid_kernel`` once and
+   ``frame_stamp_kernel`` eight times in each graph launch that the tracer
+   recorded whole (:func:`traced_chunk`), and the KLT
    wrapper, which does not count calls made under capture, must count the
    eager warm-ups before each capture and nothing else.  Prints fused and
    eager ms/frame, the device ms/frame and host decomposition, and from the
@@ -63,26 +68,27 @@ Phases, each printing one line; any failure exits nonzero before the result:
 
 7. fisheye: the full 60 s racing proxy through ``run_dataset(chunk_size=16)``
    on ``cuda`` in float32 (square-root covariance auto-enabled) with the
-   racing config (``io.racing_proxy_config``, ``configs/config_racing_proxy.yaml``)
-   and the ``--timing`` calibration: finite and healthy, >= 10 landmarks,
+   racing config (``io.racing_proxy_config``, ``configs/config_racing_proxy.yaml``),
+   unstamped as users run it: finite and healthy, >= 10 landmarks,
    position RMSE <= 0.256 m after a similarity alignment; over the first 20
    frames the same tracked ids as an eager card run with positions within
    1e-4 m, and within 0.05 m of a CPU float64 run; one ``klt_pyramid_kernel``
-   per whole graph launch in its traced chunk.  The KLT wrapper's count is zeroed
+   and no ``frame_stamp_kernel`` per whole graph launch in its traced chunk.
+   The KLT wrapper's count is zeroed
    before each card run: one launch per frame in the eager run, and in the
-   fused run exactly the eager warm-ups before its four captures.  Prints
-   fused ms/frame, device ms/frame and the stage sections.
+   fused run exactly the eager warm-ups before its capture.  Prints
+   fused ms/frame and device ms/frame.
 8. filter modes, on the benchmark scene with ``configs/config_template.yaml``'s
    switches (Euclidean, accurate Riccati, discrete innovation lift, median
    depth), fused on ``cuda``: (a) float64 with dense covariance over 32
    frames, the first 20 against the CPU float64 run (same ids, positions
    within 1e-4 m), with chunk 1 traced: one ``klt_pyramid_kernel`` per whole
    graph launch; (b) float32 (square-root auto-enabled) over all 155 frames with
-   the ``--timing`` calibration: finite and healthy, ms/frame printed; (c)
+   ``--timing``: finite and healthy, ms/frame printed; (c)
    the Normal suite and the discrete Riccati (``useDiscreteStateMatrix``),
    20 frames each in float32: finite and healthy.  The KLT wrapper, zeroed
    before each run, must count exactly the eager warm-ups before its
-   captures (one capture, four with ``--timing``).
+   capture.
 
 9. simulation: the ``eqvio_sim`` runner (``eqvio_tpu_torch.runner``), its
    frame step captured once as a CUDA graph and replayed per frame, on the
@@ -362,15 +368,17 @@ def klt_in_graph_launches(device_events, replays):
     return list(per_replay.values()), klt
 
 
-def traced_chunk(name, summary, trace_dir, chunk):
+def traced_chunk(name, summary, trace_dir, chunk, stamps=0):
     """A fused run's chunk ``chunk`` traced alone (``profile_chunk``): it
     must hold CHUNK frames and CHUNK graph launches.  Every launch replays
     the one captured graph, so a launch whose trace holds the most device
     events of any launch is complete, and each complete launch must show one
-    ``klt_pyramid_kernel``.  The tracer can lose the records at the start of
-    a trace (on the H100, up to 1,235 events of the first two launches), so
-    launches short of that count may lead the chunk, at most half of it,
-    with at most one KLT each.  Returns the host launch and copy calls by
+    ``klt_pyramid_kernel`` and ``stamps`` ``frame_stamp_kernel`` (eight in a
+    stamped step, none in one built without stamps).  The tracer can lose
+    the records at the start of a trace (on the H100, up to 1,235 events of
+    the first two launches), so launches short of that count may lead the
+    chunk, at most half of it, with at most one KLT and ``stamps`` stamps
+    each.  Returns the host launch and copy calls by
     name, the device events, ``[device events, KLT launches]`` per graph
     launch, the KLT kernels' durations in us, the host calls' span in us,
     and a note of the complete launches and the events lost."""
@@ -379,21 +387,67 @@ def traced_chunk(name, summary, trace_dir, chunk):
         fail(f"{name}: chunk {chunk} of {CHUNK} frames was not traced ({prof})")
     calls, events, replays, host_us = trace_counts(os.path.join(trace_dir, "trace.json"))
     per_replay, klt = klt_in_graph_launches(events, replays)
+    stamped = dict.fromkeys(replays, 0)
+    for ev_name, _, _, c in events:
+        if c in stamped and "frame_stamp_kernel" in ev_name:
+            stamped[c] += 1
+    stamped = list(stamped.values())
     full = max((n for n, _ in per_replay), default=0)
     lead = next((i for i, (n, _) in enumerate(per_replay) if n == full), 0)
     complete = per_replay[lead:]
     if len(replays) != CHUNK or lead > CHUNK // 2 or any(n != full or k != 1 for n, k in complete) or \
-            any(k > 1 for _, k in per_replay[:lead]):
+            any(k > 1 for _, k in per_replay[:lead]) or any(m != stamps for m in stamped[lead:]) or \
+            any(m > stamps for m in stamped[:lead]):
         fail(f"{name}: the trace shows {len(replays)} graph launches for {CHUNK} frames, klt_pyramid_kernel "
-             f"launches per graph launch {[k for _, k in per_replay]}, {len(klt)} in all (device events per "
-             f"graph launch {[n for n, _ in per_replay]}, calls {calls})")
+             f"launches per graph launch {[k for _, k in per_replay]}, {len(klt)} in all, frame_stamp_kernel "
+             f"{stamped} (expected {stamps}) (device events per graph launch {[n for n, _ in per_replay]}, "
+             f"calls {calls})")
     lost = [full - n for n, _ in per_replay[:lead]]
-    note = (f"klt_pyramid_kernel once in each of the {len(complete)} whole graph launches of {CHUNK} "
-            f"({full} device events each)")
+    note = (f"klt_pyramid_kernel once and frame_stamp_kernel {stamps} times in each of the {len(complete)} "
+            f"whole graph launches of {CHUNK} ({full} device events each)")
     if lead:
         note += (f"; the tracer lost {lost} events at the start of the first {lead}, which show "
                  f"{[k for _, k in per_replay[:lead]]} KLT launches")
     return calls, events, per_replay, klt, host_us, note
+
+
+def check_stamps(name, summary):
+    """A traced run's stamps (its summary's ``trace`` block, on the host
+    clock): consecutive frames, each frame's stamps and the next frame's
+    never decreasing, each frame between the start of its chunk's
+    ``dispatch`` span and the moment its row was in hand (within the clock
+    offset's half width and its drift over the run), and the summary's
+    ``device_sections_ms`` (features, propagation, preprocessing and
+    correction, in ms rounded to 3 places) summing to within 0.005 ms of
+    the frames' mean span from ``frame_begin`` to ``vision_end``.  Returns
+    a note."""
+    import numpy as np
+
+    tb = summary["trace"]
+    col = {f: i for i, f in enumerate(tb["frame_fields"])}
+    rows = np.asarray(tb["frames"], dtype=np.int64)
+    st = rows[:, col["frame_begin"]:col["frame_end"] + 1]
+    if len(rows) != summary["frames"] or not np.array_equal(rows[:, col["frame"]], np.arange(len(rows))):
+        fail(f"{name}: the trace block holds frames {rows[:5, col['frame']]}... for {summary['frames']} frames")
+    if (np.diff(st.reshape(-1)) < 0).any():
+        bad = int(np.argmax(np.diff(st.reshape(-1)) < 0)) // st.shape[1]
+        fail(f"{name}: the stamps decrease at frame {bad}: {st[bad].tolist()}")
+    slack = tb["clock"]["width_ns"] // 2 + abs(tb["clock"]["drift_ns"])
+    dispatch = {sp[3]: sp[1] for sp in tb["spans"] if sp[0] == "dispatch"}
+    after = st[:, 0] - np.asarray([dispatch[k] for k in rows[:, col["chunk"]]])
+    before = rows[:, col["in_hand_ns"]] - st[:, -1]
+    if after.min() < -slack or before.min() < -slack:
+        fail(f"{name}: a frame begins {after.min()} ns after its chunk's dispatch began and ends {before.min()} "
+             f"ns before its row was in hand (clock slack {slack} ns)")
+    sec = summary["device_sections_ms"]
+    summed = sum(sec[k] for k in ("features", "propagation", "preprocessing", "correction"))
+    span = float(np.mean(st[:, col["vision_end"] - col["frame_begin"]] - st[:, 0])) * 1e-6
+    if abs(summed - span) > 0.005:
+        fail(f"{name}: device_sections_ms sum to {summed:.4f} ms/frame, the stamps' begin to vision end "
+             f"{span:.4f} ({sec})")
+    return (f"stamps of {len(rows)} frames in order, each frame >= {after.min() / 1e3:.1f} us after its "
+            f"chunk's dispatch began and >= {before.min() / 1e3:.1f} us before its row was in hand (clock "
+            f"slack {slack / 1e3:.1f} us); sections sum {summed:.3f} ms/frame against the stamps' {span:.4f}")
 
 
 def check_run(name, state, summary, frames=None, min_landmarks=10):
@@ -1501,7 +1555,7 @@ def main() -> None:
     K.klt_track_pyramid.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    state_f, fused = run_dataset(reader, cfg, device="cuda", chunk_size=CHUNK, timing=True,
+    state_f, fused = run_dataset(reader, cfg, device="cuda", chunk_size=CHUNK, timing=True, trace=True,
                                  profile_dir=PROFILE_DIR, profile_chunk=PROFILE_CHUNK)
     torch.cuda.synchronize()
     wall_f = time.perf_counter() - t0
@@ -1514,11 +1568,10 @@ def main() -> None:
              f"landmarks {fused['landmarks']}")
     if "graph" not in fused:
         fail("fused: the run captured no graph")
-    # the wrapper counts eager launches only: the warm-up before each capture of
-    # the frame step and of the calibration's three feature stages
-    if warmup_launches != WARMUP_STEPS * 4 + COST_STEPS:
+    # the wrapper counts eager launches only: the warm-up before the frame step's capture
+    if warmup_launches != WARMUP_STEPS + COST_STEPS:
         fail(f"fused: the KLT wrapper counted {warmup_launches} eager launches, not the "
-             f"{WARMUP_STEPS * 4} of the warm-ups before capture and the {COST_STEPS} counted step")
+             f"{WARMUP_STEPS} of the warm-ups before capture and the {COST_STEPS} counted step")
     n = FUSED_FRAMES
     if not np.array_equal(fused["stamps"][:n], summary["stamps"][:n]):
         fail("fused: the fused and eager runs' stamps differ")
@@ -1535,7 +1588,9 @@ def main() -> None:
     # chunk PROFILE_CHUNK of this run, traced alone from an idle card: launches,
     # idle share, the KLT inside the graph
     prof = fused["profile"]
-    calls, device_events, _, klt, host_us, klt_note = traced_chunk("fused", fused, PROFILE_DIR, PROFILE_CHUNK)
+    calls, device_events, _, klt, host_us, klt_note = traced_chunk("fused", fused, PROFILE_DIR, PROFILE_CHUNK,
+                                                                  stamps=8)
+    stamp_note = check_stamps("fused", fused)
     ms_klt_graph = sum(klt) / len(klt) / 1e3
     span_ms = (max(e[2] for e in device_events) - min(e[1] for e in device_events)) / 1e3 / CHUNK
     busy_ms = busy_us(device_events) / 1e3 / CHUNK
@@ -1545,7 +1600,7 @@ def main() -> None:
     host_ms = host_us / 1e3 / CHUNK
 
     setup_s = fused["setup_s"]
-    # wall time per frame without the set-up (capture, calibration) and the traced chunk
+    # wall time per frame without the set-up (capture, timing replays) and the traced chunk
     ms_fused = (wall_f - setup_s - prof["s"]) * 1e3 / (frames_f - prof["frames"])
     sections = fused["device_sections_ms"]
     if not all(fused.get(k, 0) > 0 for k in ("flops_per_frame", "hbm_bytes_per_frame", "achieved_gflops",
@@ -1555,7 +1610,7 @@ def main() -> None:
           f"{fused['hbm_bytes_per_frame'] / 1e6:.3f} MB, achieved {fused['achieved_gflops']:.3f} GFLOP/s and "
           f"{fused['achieved_hbm_gbps']:.3f} GB/s against the device time ({card})", flush=True)
     print(f"fused: {frames_f} frames on cuda f32 in chunks of {CHUNK}: {ms_fused:.3f} ms/frame without the "
-          f"{setup_s:.2f} s of capture and calibration and the traced chunk's {prof['s']:.2f} s "
+          f"{setup_s:.2f} s of set-up and the traced chunk's {prof['s']:.2f} s "
           f"({wall_f * 1e3 / frames_f:.3f} with them), eager {ms_frame:.2f} ms/frame in the same process; "
           f"device {fused['device_ms_per_frame']} ms/frame; host ms/frame {json.dumps(fused['host_ms_per_frame'])}, "
           f"dispatch {fused['dispatch_ms_per_frame']}, fetch {fused['fetch_ms_per_frame']}; {fused['landmarks']} "
@@ -1565,7 +1620,7 @@ def main() -> None:
           f"{sections['features_full'] - sections['features_skip']:.3f} ms/frame (features full - skip); "
           f"searched fraction {fused['searched_frame_fraction']}; graph capture and instantiation "
           f"{fused['graph']['capture_s']:.3f} s, pool {fused['graph']['pool_bytes']} bytes; KLT wrapper "
-          f"{warmup_launches} eager warm-up launches ({card})", flush=True)
+          f"{warmup_launches} eager warm-up launches; {stamp_note} ({card})", flush=True)
 
     def eager_frames():
         run_dataset(reader, cfg, device="cuda", chunk_size=1, limit_frames=EAGER_PROFILE_FRAMES)
@@ -1593,7 +1648,7 @@ def main() -> None:
         fail(f"fisheye: {launches_r} KLT kernel launches for the eager run's {FUSED_FRAMES} frames")
     K.klt_track_pyramid.launches = 0
     t0 = time.perf_counter()
-    state_r, fused_r = run_dataset(racing, cfg_r, device="cuda", chunk_size=CHUNK, timing=True,
+    state_r, fused_r = run_dataset(racing, cfg_r, device="cuda", chunk_size=CHUNK,
                                    profile_dir=RACING_PROFILE_DIR, profile_chunk=PROFILE_CHUNK)
     torch.cuda.synchronize()
     wall_r = time.perf_counter() - t0
@@ -1601,9 +1656,9 @@ def main() -> None:
     _, cpu_r = run_dataset(racing, cfg_r, device="cpu", chunk_size=1, limit_frames=FUSED_FRAMES)
     frames_r = fused_r["frames"]
     check_run("fisheye", state_r, fused_r, frames=len(racing.images.stamps))
-    if warmup_r != WARMUP_STEPS * 4 + COST_STEPS:
+    if warmup_r != WARMUP_STEPS + COST_STEPS:
         fail(f"fisheye: the KLT wrapper counted {warmup_r} eager launches in the fused run, not the "
-             f"{WARMUP_STEPS * 4} of the warm-ups before capture and the {COST_STEPS} counted step")
+             f"{WARMUP_STEPS} of the warm-ups before capture and the {COST_STEPS} counted step")
     gt_r = racing.groundtruth
     gt_pos_r = np.stack([np.interp(fused_r["stamps"], gt_r.stamps, gt_r.position[:, i]) for i in range(3)], -1)
     rmse_r = umeyama_rmse(fused_r["positions"], gt_pos_r)
@@ -1628,7 +1683,7 @@ def main() -> None:
     busy_r = busy_us(events_r) / 1e3 / CHUNK
     idle_r = 1.0 - busy_r / prof_r["device_ms_per_frame"]
     print(f"fisheye: racing proxy, {frames_r} frames on cuda f32 (square-root) in chunks of {CHUNK}: "
-          f"{ms_fused_r:.3f} ms/frame without the {fused_r['setup_s']:.2f} s of capture and calibration and the "
+          f"{ms_fused_r:.3f} ms/frame without the {fused_r['setup_s']:.2f} s of set-up and the "
           f"traced chunk's {prof_r['s']:.2f} s ({wall_r * 1e3 / frames_r:.3f} with them); device "
           f"{fused_r['device_ms_per_frame']} ms/frame; position RMSE {rmse_r:.4f} m (sim(3)-aligned, gate "
           f"{RACING_GATE_M}); {fused_r['landmarks']} landmarks; first {n} frames: ids equal to the eager card run, "
@@ -1640,8 +1695,7 @@ def main() -> None:
           f"the same chunk's untraced device time {prof_r['device_ms_per_frame']:.3f} ms/frame; "
           f"{len(events_r) / CHUNK:.1f} device events per frame; largest by device "
           f"ms/frame: {largest_kernels(events_r, CHUNK, 8)} ({card})", flush=True)
-    print(f"fisheye: device sections ms/frame {json.dumps(fused_r['device_sections_ms'])}; searched fraction "
-          f"{fused_r['searched_frame_fraction']}; graph capture {fused_r['graph']['capture_s']:.3f} s, pool "
+    print(f"fisheye: searched fraction {fused_r['searched_frame_fraction']}; graph capture {fused_r['graph']['capture_s']:.3f} s, pool "
           f"{fused_r['graph']['pool_bytes']} bytes; host ms/frame {json.dumps(fused_r['host_ms_per_frame'])} "
           f"({card})", flush=True)
 
@@ -1649,8 +1703,7 @@ def main() -> None:
     import copy
 
     cfg_t = template_config()
-    # the KLT wrapper counts the eager warm-ups before each capture: the
-    # frame step's, and with timing also the three feature stages'
+    # the KLT wrapper counts the eager warm-ups before the frame step's capture
     K.klt_track_pyramid.launches = 0
     state_a, dense = run_dataset(reader, cfg_t, device="cuda", chunk_size=CHUNK, limit_frames=2 * CHUNK,
                                  dtype=torch.float64, profile_dir=DENSE_PROFILE_DIR, profile_chunk=1)
@@ -1682,14 +1735,14 @@ def main() -> None:
     wall_b = time.perf_counter() - t0
     launches_b = K.klt_track_pyramid.launches
     check_run("modes (b) square-root f32", state_b, sqrt_b, frames=frames)
-    if state_b.Sigma.dtype != torch.float32 or launches_b != WARMUP_STEPS * 4 + COST_STEPS:
+    if state_b.Sigma.dtype != torch.float32 or launches_b != WARMUP_STEPS + COST_STEPS:
         fail(f"modes (b): Sigma {state_b.Sigma.dtype}, KLT wrapper {launches_b} eager launches (expected the "
-             f"{WARMUP_STEPS * 4} warm-ups before capture and the {COST_STEPS} counted step)")
+             f"{WARMUP_STEPS} warm-ups before capture and the {COST_STEPS} counted step)")
     gt_pos_b = np.stack([np.interp(sqrt_b["stamps"], gt.stamps, gt.position[:, i]) for i in range(3)], -1)
     rmse_b = umeyama_rmse(sqrt_b["positions"], gt_pos_b)
     ms_b = (wall_b - sqrt_b["setup_s"]) * 1e3 / sqrt_b["frames"]
     print(f"modes (b): template config, float32 square-root, fused on cuda over {sqrt_b['frames']} frames: "
-          f"{ms_b:.3f} ms/frame without the {sqrt_b['setup_s']:.2f} s of capture and calibration; device "
+          f"{ms_b:.3f} ms/frame without the {sqrt_b['setup_s']:.2f} s of set-up; device "
           f"{sqrt_b['device_ms_per_frame']} ms/frame; sections {json.dumps(sqrt_b['device_sections_ms'])}; "
           f"{sqrt_b['landmarks']} landmarks; position RMSE {rmse_b:.4f} m (sim(3)-aligned); graph capture "
           f"{sqrt_b['graph']['capture_s']:.3f} s, pool {sqrt_b['graph']['pool_bytes']} bytes ({card})", flush=True)

@@ -31,7 +31,7 @@ no counterpart on a local card.
 Usage:
     python -m eqvio_tpu_torch.app.run_opt <dataset> <config.yaml>
         [--mode asl|uzhfpv|anu|rosbag|hilti] [--device cuda|cpu] [--chunk C] [--output DIR]
-        [--start T] [--stop T] [--timing] [--limitRate HZ] [--profile DIR] [--f64]
+        [--start T] [--stop T] [--timing] [--trace] [--limitRate HZ] [--profile DIR] [--f64]
         [--simvis] [--simimu] [--checkpointEvery N] [--checkpointPath P] [--resume P] [--live PORT]
 """
 
@@ -58,14 +58,19 @@ from ..data.asl import ImageSeq
 from ..frontend import tracker_init, tracker_step
 from ..graph import GraphStep, broadcast_lanes, select
 from ..io import LoopTimer, VIOWriter, load_config, safe_get, settings_from_config, tracker_config_from_config
+from ..io.timing import Tracer, idle_by_host, write_trace
 from ..io.writer import rotation_to_quaternion
 from ..runtime import check_finite, configure_runtime, debug_nans
+from ..stamps import (FRAME_BEGIN, FRAME_END, LIFECYCLE_END, PROPAGATION_END, STAMPS, TRACKER_END, VISION_END,
+                      host_ns, stamp, stamping)
 from ..states import IMU
 
 TIMING_LABELS = ["features", "propagation", "preprocessing", "correction", "total vision update",
                  "write output", "total"]
 TRACE_TAIL_S = 0.2  # a card trace stays open this long after its block's device work ends
 COST_STEPS = 1  # eager frame steps a fused run adds to count its step's work (cost.count)
+# the fused loop's spans that enqueue no device work: a profiler's trace shows them as eqvio.<name>
+HOST_SPANS = ("iter_wait", "imu_window_asm", "chunk_pack", "checkpoint_wait", "fetch_wait", "write")
 
 
 def _build_imu_window(imu_buf, t_prev, stamp, imu_window):
@@ -212,6 +217,7 @@ def run_dataset(
     live_port: int | None = None,
     imu_window: int | None = None,
     camera_lag: float | None = None,
+    trace: bool = False,
 ):
     """Run the pipeline; returns ``(final EqFState, summary)``.
 
@@ -236,6 +242,14 @@ def run_dataset(
     (``flops_per_frame``, ``hbm_bytes_per_frame``, ``achieved_gflops``,
     ``achieved_hbm_gbps``), the image decoder the data server used
     (``decoder``) and its seconds per frame (``decode_ms_per_frame``).
+    The fused path's summary also splits ``setup_s`` into ``setup_parts_s``
+    (``runner``, ``capture``, ``timing_replays``, ``enqueue_probe``,
+    ``cost_count``).  ``timing`` (fused path) stamps each frame's stages on
+    the device for ``timing.csv`` and ``device_sections_ms``; ``trace``
+    (fused path) stamps them too and adds the ``trace`` block: every
+    frame's stamps and the host spans on the profiler's clock, and the
+    device's idle time between frames by host span (see :func:`_run_fused`;
+    :func:`io.timing.write_trace` writes it as JSON lines).
 
     ``checkpoint_every=N`` (fused path) saves the filter and tracker states
     and the stream cursor (:mod:`eqvio_tpu_torch.checkpoint`) to
@@ -271,6 +285,8 @@ def run_dataset(
         raise ValueError("checkpoint/resume runs on the fused path: chunk_size > 1, without simvis")
     if live_port is not None and not fused:
         raise ValueError("the live view runs on the fused path: chunk_size > 1, without simvis")
+    if trace and not fused:
+        raise ValueError("trace runs on the fused path: chunk_size > 1, without simvis")
     cursor = None
     if resume:
         from ..checkpoint import load_checkpoint
@@ -288,7 +304,7 @@ def run_dataset(
             limit_frames, limit_rate)
     if fused:
         opts = dict(sim=sim if simimu else None, checkpoint_every=checkpoint_every,
-                    checkpoint_path=checkpoint_path, cursor=cursor, live_port=live_port)
+                    checkpoint_path=checkpoint_path, cursor=cursor, live_port=live_port, trace=trace)
         if profile_chunk is not None:
             return _run_fused(*args, chunk_size, profile_dir, profile_chunk, **opts)
         with _profiling(profile_dir):
@@ -512,9 +528,10 @@ class FrameFeed:
     """The fused loop's host side: iterating yields ``(attitude-initialised
     state, stamp, uint8 image [H, W], IMU window)`` per frame.  The first
     window starts at the first IMU sample, as in the JAX package's fused
-    path.  ``tot["iter"]`` and ``tot["asm"]`` gather the host seconds spent
-    waiting on the data server and assembling the frames.  With ``sim``
-    the IMU samples are simulated (``simimu``).
+    path.  The host's time waiting on the data server and assembling each
+    frame goes to the spans ``iter_wait`` and ``imu_window_asm`` of
+    ``tracer`` (:class:`io.timing.Tracer`), each with the frame it leads to.
+    With ``sim`` the IMU samples are simulated (``simimu``).
 
     :meth:`cursor` is the stream position after the last frame yielded (the
     previous frame's stamp, the IMU samples still needed, the last IMU
@@ -522,15 +539,17 @@ class FrameFeed:
     skips the measurements before it and starts from its IMU samples, as
     the uninterrupted feed would have gone on."""
 
-    def __init__(self, server, state, imu_window: int, dtype, dev, tot: dict, sim=None,
+    def __init__(self, server, state, imu_window: int, dtype, dev, tracer: Tracer, sim=None,
                  cursor: dict | None = None):
         self.server, self.state, self.imu_window = server, state, imu_window
-        self.dtype, self.dev, self.tot, self.sim = dtype, dev, tot, sim
+        self.dtype, self.dev, self.tracer, self.sim = dtype, dev, tracer, sim
         self.imu_buf: list = []
         self.t_prev = -1.0
         self.initialised = False
         self.skip_imu_until = self.skip_img_until = -np.inf
+        self.frame = 0  # the next frame's index in the stream
         if cursor:
+            self.frame = int(cursor["frames"])
             self.initialised = True
             self.t_prev = float(cursor["t_prev"])
             self.imu_buf = [(float(t), np.asarray(g, dtype=float), np.asarray(a, dtype=float))
@@ -548,12 +567,11 @@ class FrameFeed:
         }
 
     def __iter__(self):
-        tot, dtype, dev = self.tot, self.dtype, self.dev
+        tr, dtype, dev = self.tracer, self.dtype, self.dev
         it = iter(self.server)
         while True:
-            t0 = time.perf_counter()
-            meas = next(it, None)
-            tot["iter"] += time.perf_counter() - t0
+            with tr.span("iter_wait", frames=(self.frame, self.frame + 1)):
+                meas = next(it, None)
             if meas is None:
                 return
             if meas.kind == "imu":
@@ -570,14 +588,14 @@ class FrameFeed:
                 continue
             if not self.initialised or meas.stamp <= self.skip_img_until:
                 continue
-            t0 = time.perf_counter()
-            window, self.imu_buf = _build_imu_window(self.imu_buf, self.t_prev, meas.stamp, self.imu_window)
-            self.t_prev = meas.stamp
-            im = np.asarray(meas.data)
-            if im.dtype != np.uint8:
-                # round, don't truncate; clip so out-of-range floats cannot wrap
-                im = np.clip(im * 255.0 + 0.5, 0.0, 255.0).astype(np.uint8)
-            tot["asm"] += time.perf_counter() - t0
+            with tr.span("imu_window_asm", frames=(self.frame, self.frame + 1)):
+                window, self.imu_buf = _build_imu_window(self.imu_buf, self.t_prev, meas.stamp, self.imu_window)
+                self.t_prev = meas.stamp
+                im = np.asarray(meas.data)
+                if im.dtype != np.uint8:
+                    # round, don't truncate; clip so out-of-range floats cannot wrap
+                    im = np.clip(im * 255.0 + 0.5, 0.0, 255.0).astype(np.uint8)
+            self.frame += 1
             yield self.state, meas.stamp, im, window
 
 
@@ -596,25 +614,31 @@ def _make_frame_fn(tcfg, settings, suite, camera, imu_window, dtype):
     the filter dtype (float64 runs keep full CSV precision).  A padded frame
     (``valid = 0``) returns the carry unchanged.  The step reads no host
     value and builds no tensor from host data, so a CUDA graph captures it.
+    Its stage boundaries call :func:`stamps.stamp`, which stamps only
+    inside :func:`_stamped`.
     """
     K = imu_window
 
     def frame_fn(carry, img_u8, meta):
+        stamp(FRAME_BEGIN)
         state, tracker = carry
         img = img_u8.to(torch.float32) * (1.0 / 255.0)
-        imu_win, dts, stamp, valid = _imu_from_meta(meta, K)
+        imu_win, dts, t_frame, valid = _imu_from_meta(meta, K)
         if settings.use_feature_predictions:
             # forward-predict the state over the frame's IMU window and project
             predicted = _predicted_pixels(F.predict_state(state, imu_win, dts), camera, tracker)
             new_tracker = tracker_step(tracker, img, tcfg, predicted=predicted)
         else:
             new_tracker = tracker_step(tracker, img, tcfg)
+        stamp(TRACKER_END)
         pixels = new_tracker.positions.to(dtype)
         vis, ids = new_tracker.mask, new_tracker.ids
         # one-QR frame: the Riccati stack feeds the Kailath pre-array directly
         new_state = F.propagate_window(state, imu_win, dts, settings, suite, wide_factor=True)
+        stamp(PROPAGATION_END)
         new_state = F.process_vision(new_state, pixels, vis, ids, camera, settings, suite)
-        new_state = new_state._replace(t=stamp)
+        stamp(VISION_END)
+        new_state = new_state._replace(t=t_frame)
         state = select(valid, new_state, state)
         tracker = select(valid, new_tracker, tracker)
         est = F.state_estimate(state)
@@ -633,9 +657,21 @@ def _make_frame_fn(tcfg, settings, suite, camera, imu_window, dtype):
             ids.to(dtype),
             vis.to(dtype),
         ])
+        stamp(FRAME_END)
         return (state, tracker), out
 
     return frame_fn
+
+
+def _stamped(frame_fn, row: torch.Tensor):
+    """The frame step stamping its stages into ``row`` (``[len(STAMPS)]``
+    int64, :mod:`eqvio_tpu_torch.stamps`), a buffer of fixed address."""
+
+    def fn(carry, img_u8, meta):
+        with stamping(row):
+            return frame_fn(carry, img_u8, meta)
+
+    return fn
 
 
 class ChunkRunner:
@@ -643,29 +679,41 @@ class ChunkRunner:
     once per frame of a chunk.  Per frame a call costs two input copies, one
     graph replay and one copy of the output row into the chunk's output.
     A carry with a leading lane axis runs the step under ``torch.func.vmap``
-    (:class:`BatchChunkRunner`)."""
+    (:class:`BatchChunkRunner`).  With ``stamps`` (one sequence only) the
+    step also stamps its stages into :attr:`row` (:func:`_stamped`), which
+    :meth:`run` copies out after each frame."""
 
-    def __init__(self, tcfg, settings, suite, camera, imu_window, dtype, state, tracker, device):
+    def __init__(self, tcfg, settings, suite, camera, imu_window, dtype, state, tracker, device,
+                 stamps: bool = False):
         self.imu_window = imu_window
         self.dtype = dtype
         self.out_width = _out_width(tcfg.max_features)
         self.lead = tuple(tracker.positions.shape[:-2])  # () for one sequence, (B,) for lanes
+        if stamps and self.lead:
+            raise ValueError("a lane batch runs without stamps")
+        self.row = torch.zeros(len(STAMPS), dtype=torch.int64, device=device) if stamps else None
         step = _make_frame_fn(tcfg, settings, suite, camera, imu_window, dtype)
         if self.lead:
             step = torch.func.vmap(step)
+        elif stamps:
+            step = _stamped(step, self.row)
         image = torch.zeros(self.lead + tuple(tracker.pyramid[0].shape[-2:]), dtype=torch.uint8, device=device)
         meta = torch.zeros(self.lead + (_meta_width(imu_window),), dtype=dtype, device=device)
         self.step = GraphStep(step, (state, tracker), [image, meta], device)
 
-    def run(self, imgs: torch.Tensor, meta: torch.Tensor, outs: torch.Tensor | None = None) -> torch.Tensor:
+    def run(self, imgs: torch.Tensor, meta: torch.Tensor, outs: torch.Tensor | None = None,
+            stamps: torch.Tensor | None = None) -> torch.Tensor:
         """Run the frames ``imgs [*L, C, H, W]`` (uint8) with ``meta [*L, C,
         8K+2]`` (``L`` the lane axis, if any); returns the output rows
-        ``[*L, C, 34 + 9N]``."""
+        ``[*L, C, 34 + 9N]``.  A stamped step's rows go to ``stamps [C,
+        len(STAMPS)]`` if given, else nowhere."""
         ax = len(self.lead)
         if outs is None:
             outs = torch.empty(self.lead + (imgs.shape[ax], self.out_width), dtype=self.dtype, device=meta.device)
         for i in range(imgs.shape[ax]):
             outs.select(ax, i).copy_(self.step(imgs.select(ax, i), meta.select(ax, i)))
+            if stamps is not None:
+                stamps[i].copy_(self.row)
         return outs
 
 
@@ -718,95 +766,16 @@ def _best_of(timed, fn, restore, reps: int = 2) -> float:
     return best
 
 
-def _make_stage_runners(tcfg, settings, suite, camera, imu_window, dtype, state, tracker, device):
-    """Per-stage steps for the ``--timing`` calibration: the tracker alone
-    (gated as configured, always searching, never searching), propagation
-    alone, propagation + lifecycle (``do_update=False``), and propagation +
-    the whole vision step.  Each is a :class:`GraphStep`, so on the card it
-    is timed as graph replays like the fused step.  With feature
-    predictions on, the feature stages track without them."""
-    K = imu_window
-
-    def feat_fn(cfg):
-        def fn(trk, img_u8):
-            trk = tracker_step(trk, img_u8.to(torch.float32) * (1.0 / 255.0), cfg)
-            return trk, (trk.positions, trk.mask, trk.ids)
-        return fn
-
-    def prop_fn(st, meta):
-        imu_win, dts, _, _ = _imu_from_meta(meta, K)
-        st = F.propagate_window(st, imu_win, dts, settings, suite)
-        return st, st.t
-
-    def vision_fn(do_update):
-        def fn(st, meta, pix, vis, ids):
-            imu_win, dts, _, _ = _imu_from_meta(meta, K)
-            st = F.propagate_window(st, imu_win, dts, settings, suite, wide_factor=True)
-            st = F.process_vision(st, pix.to(dtype), vis, ids, camera, settings, suite, do_update=do_update)
-            return st, st.t
-        return fn
-
-    image = torch.zeros(tracker.pyramid[0].shape, dtype=torch.uint8, device=device)
-    meta = torch.zeros(_meta_width(K), dtype=dtype, device=device)
-    track_in = [tracker.positions, tracker.mask, tracker.ids]
-    feats = {name: GraphStep(feat_fn(dataclasses.replace(tcfg, feature_search_threshold=thr)),
-                             tracker, [image], device)
-             for name, thr in (("features", tcfg.feature_search_threshold),
-                               ("features_full", 1.0), ("features_skip", 0.0))}
-    return feats, {
-        "propagation": GraphStep(prop_fn, state, [meta], device),
-        "preprocessing": GraphStep(vision_fn(False), state, [meta, *track_in], device),
-        "correction": GraphStep(vision_fn(True), state, [meta, *track_in], device),
-    }
-
-
-def _calibrate_stages(tcfg, settings, suite, camera, imu_window, dtype, state, tracker, device, imgs, meta):
-    """Device seconds per frame of each stage over one chunk, run from the
-    given carry (which does not advance): features (gated, as on the card),
-    features_full, features_skip, propagation, preprocessing and
-    correction (the latter two as differences, as in the JAX package)."""
-    feats, vision = _make_stage_runners(tcfg, settings, suite, camera, imu_window, dtype, state, tracker,
-                                        device)
-    timed = _device_timer(device)
-    C = imgs.shape[0]
-    seq = [torch.empty((C,) + tuple(t.shape), dtype=t.dtype, device=device)
-           for t in (tracker.positions, tracker.mask, tracker.ids)]
-    secs = {}
-    for name, step in feats.items():
-        def run(step=step, keep=name == "features"):
-            for i in range(C):
-                out = step(imgs[i])
-                if keep:
-                    for dst, src in zip(seq, out):
-                        dst[i].copy_(src)
-        secs[name] = _best_of(timed, run, lambda step=step: step.load(tracker))
-    for name, step in vision.items():
-        extra = name != "propagation"
-
-        def run(step=step, extra=extra):
-            for i in range(C):
-                step(meta[i], *([s[i] for s in seq] if extra else []))
-        secs[name] = _best_of(timed, run, lambda step=step: step.load(state))
-    return {
-        "features": secs["features"] / C,
-        "features_full": secs["features_full"] / C,
-        "features_skip": secs["features_skip"] / C,
-        "propagation": secs["propagation"] / C,
-        "preprocessing": max(secs["preprocessing"] - secs["propagation"], 0.0) / C,
-        "correction": max(secs["correction"] - secs["preprocessing"], 0.0) / C,
-    }
-
-
 def _run_fused(server, state, tracker, tcfg, settings, camera, writer, timing, imu_window, dtype, dev,
                limit_frames, limit_rate, chunk_size, profile_dir=None, profile_chunk=None, sim=None,
-               checkpoint_every=0, checkpoint_path=None, cursor=None, live_port=None):
+               checkpoint_every=0, checkpoint_path=None, cursor=None, live_port=None, trace=False):
     """The chunked loop: ``chunk_size`` frames per upload, the frame step
     replayed per frame, outputs fetched once per chunk by a thread.  Chunk
     ``profile_chunk`` (if given) is dispatched from an idle card under a
     trace written to ``profile_dir``.  ``sim`` simulates the IMU samples;
     ``checkpoint_every``, ``checkpoint_path``, ``cursor`` (a loaded
-    checkpoint's, with ``state`` and ``tracker`` its states) and
-    ``live_port`` are :func:`run_dataset`'s.
+    checkpoint's, with ``state`` and ``tracker`` its states), ``live_port``
+    and ``trace`` are :func:`run_dataset`'s.
 
     A checkpoint is saved after a full chunk once ``checkpoint_every``
     frames have gone by since the last: the fetch thread first writes every
@@ -815,15 +784,32 @@ def _run_fused(server, state, tracker, tcfg, settings, camera, writer, timing, i
     replays, so rows, carry and cursor describe the same frame.  A resumed
     run builds its graph from the loaded carry.
 
-    Timing semantics (``--timing``): the rows' features / propagation /
-    preprocessing / correction are DEVICE times per frame, calibrated once
-    per run by re-running the first full chunk stage by stage on snapshots
-    of the carry; "total vision update" is their sum; "write output" is the
-    host's CSV time and "total" the host's wall time per frame.  The chunk's
-    own device time per frame (``device_ms_per_frame``) and the host's time
-    to enqueue its replays from an idle card (``enqueue_ms_per_frame``, on
-    the card only) are measured on the same snapshots.  On the card every device time is taken
-    with CUDA events around graph replays.
+    Host time goes to the spans of one :class:`Tracer`: on the main thread
+    ``iter_wait`` and ``imu_window_asm`` (the feed), ``chunk`` around a
+    chunk's ``chunk_pack``, ``upload``, ``setup`` (the first chunk's
+    ``setup.runner``, ``setup.capture``, ``setup.timing_replays``,
+    ``setup.enqueue_probe`` and ``setup.cost_count``) and ``dispatch``, and
+    ``checkpoint_wait`` (for the rows before a checkpoint) and
+    ``checkpoint``; on the fetch thread ``fetch_wait`` and ``write``.  The
+    summary's host numbers are their totals.  Under a profiler the spans of
+    :data:`HOST_SPANS` show in its trace as ``eqvio.<name>``.  The first full chunk's
+    device time per frame (``device_ms_per_frame``, the best of two replays
+    from a snapshot of the carry), on the card the host's time to enqueue it
+    from an idle card (``enqueue_ms_per_frame``) and one step's counted work
+    are measured in the set-up.
+
+    With ``timing`` or ``trace`` the frame step stamps its stage boundaries
+    (:data:`stamps.STAMPS`) into a row per frame, fetched with the
+    output rows.  ``timing.csv``'s features / propagation / preprocessing /
+    correction are then each frame's own device times from its stamps;
+    "total vision update" is the sum of the last three, "write output" the
+    host's CSV time and "total" the host's wall time per frame; the summary's
+    ``device_sections_ms`` are their means (``features_full`` over the
+    frames that ran the detector, ``features_skip`` over the others).
+    ``trace`` also keeps the spans and adds the summary's ``trace`` block:
+    each frame's stamps on the host clock and the host time its row was in
+    hand, the spans, the clock offset, and the device's idle seconds between
+    frames by the host span that covered each gap (:func:`idle_by_host`).
     """
     suite = settings.suite
     C, K = chunk_size, imu_window
@@ -832,6 +818,8 @@ def _run_fused(server, state, tracker, tcfg, settings, camera, writer, timing, i
     H, W = tracker.pyramid[0].shape
     runner = None  # built at the first chunk, from the attitude-initialised state
     timed = _device_timer(dev)
+    stamped = timing or trace
+    tr = Tracer(keep=trace, annotate=HOST_SPANS)
 
     # two pinned host slots per input, so packing one chunk never touches a
     # slot whose upload may still be in flight
@@ -840,16 +828,18 @@ def _run_fused(server, state, tracker, tcfg, settings, camera, writer, timing, i
     uploaded = [None, None]
     dev_imgs = torch.empty((C, H, W), dtype=torch.uint8, device=dev)
     dev_meta = torch.empty((C, _meta_width(K)), dtype=dtype, device=dev)
+    dev_stamps = torch.empty((C, len(STAMPS)), dtype=torch.int64, device=dev) if stamped else None
 
     pend: list = []  # (stamp, uint8 image, IMU window)
     n_chunks = 0
     enqueued = 0
-    tot = dict(disp=0.0, up=0.0, get=0.0, wr=0.0, iter=0.0, asm=0.0, pack=0.0, setup=0.0, ckpt=0.0, ckpts=0,
-               timing_replays=0)
+    timing_replays = 0  # graph replays outside the frames: the set-up's and a profiled chunk's
     done = {"frames": 0, "searched": 0}
     out_stamps, positions, feature_ids = [], [], []  # per frame, in order
-    device_ms_per_frame = enqueue_ms_per_frame = None
-    calib = step_cost = None
+    stage_s = dict.fromkeys(("features", "features_full", "features_skip", "propagation", "preprocessing",
+                             "correction"), 0.0)  # device seconds summed over the frames, from the stamps
+    frame_rows: list = []  # traced: [frame, chunk, in hand, *stamps] per frame
+    device_ms_per_frame = enqueue_ms_per_frame = step_cost = None
     profiled: dict = {}
     rate_mark = [time.perf_counter()]
 
@@ -864,34 +854,43 @@ def _run_fused(server, state, tracker, tcfg, settings, camera, writer, timing, i
         live = LiveDisplayServer(port=live_port)
         print(f"live map view: http://127.0.0.1:{live.port}/", flush=True)
 
-    def consume(stamps, n, arr, t_disp, t_get):
-        t_wr0 = time.perf_counter()
-        for i in range(n):
-            (pR, px, vel, cR, cx, bias, searched, lms, lids, lmask, fpx, fids, fvis) = _unpack_outputs(arr[i], N)
-            done["searched"] += int(searched)
-            out_stamps.append(stamps[i])
-            positions.append(px)
-            feature_ids.append(np.where(fvis, fids, -1))
-            if writer is not None:
-                writer.write_states(stamps[i], pR, px, vel, cR, cx, bias,
-                                    landmarks=lms, landmark_ids=lids, landmark_mask=lmask)
-                writer.write_features(stamps[i], fpx, fids, fvis)
-            if live is not None:
-                live.update(stamps[i], pR, px, cR, cx, lms, lids, lmask)
-        t_wr = time.perf_counter() - t_wr0
-        tot["wr"] += t_wr
-        if writer is not None and timing:
+    def consume(k, f0, stamps, n, arr, rows, in_hand, t_disp, t_get):
+        with tr.span("write", k, (f0, f0 + n)) as wr:
             for i in range(n):
-                row = {lab: 0.0 for lab in TIMING_LABELS}
-                if calib is not None:
-                    for lab in ("features", "propagation", "preprocessing", "correction"):
-                        row[lab] = calib[lab]
-                    row["total vision update"] = calib["propagation"] + calib["preprocessing"] + calib["correction"]
-                else:
-                    row["total vision update"] = (t_disp + t_get) / n
-                row["write output"] = t_wr / n
-                row["total"] = (t_disp + t_get + t_wr) / n
-                writer.write_timing(t_wr0, row)
+                (pR, px, vel, cR, cx, bias, searched, lms, lids, lmask, fpx, fids, fvis) = _unpack_outputs(arr[i], N)
+                done["searched"] += int(searched)
+                out_stamps.append(stamps[i])
+                positions.append(px)
+                feature_ids.append(np.where(fvis, fids, -1))
+                if writer is not None:
+                    writer.write_states(stamps[i], pR, px, vel, cR, cx, bias,
+                                        landmarks=lms, landmark_ids=lids, landmark_mask=lmask)
+                    writer.write_features(stamps[i], fpx, fids, fvis)
+                if live is not None:
+                    live.update(stamps[i], pR, px, cR, cx, lms, lids, lmask)
+        t_wr = wr.seconds
+        if rows is not None:
+            secs = np.diff(rows[:n], axis=1) * 1e-9  # [n, stages]: each stamp to the next
+            # features: frame begin to tracker end; propagation, preprocessing
+            # (the landmark lifecycle) and correction each to its stamp
+            parts = {"features": secs[:, FRAME_BEGIN:TRACKER_END].sum(1), "propagation": secs[:, TRACKER_END],
+                     "preprocessing": secs[:, PROPAGATION_END], "correction": secs[:, LIFECYCLE_END]}
+            searched = arr[:n, 33] > 0.5
+            for lab, v in parts.items():
+                stage_s[lab] += float(v.sum())
+            stage_s["features_full"] += float(parts["features"][searched].sum())
+            stage_s["features_skip"] += float(parts["features"][~searched].sum())
+            if trace:
+                frame_rows.extend([f0 + i, k, in_hand, *map(int, rows[i])] for i in range(n))
+            if writer is not None and timing:
+                for i in range(n):
+                    row = {lab: 0.0 for lab in TIMING_LABELS}
+                    for lab, v in parts.items():
+                        row[lab] = float(v[i])
+                    row["total vision update"] = row["propagation"] + row["preprocessing"] + row["correction"]
+                    row["write output"] = t_wr / n
+                    row["total"] = (t_disp + t_get + t_wr) / n
+                    writer.write_timing(wr.start * 1e-9, row)
         done["frames"] += n
         if limit_rate and limit_rate > 0:
             sleep_for = rate_mark[0] + n / limit_rate - time.perf_counter()
@@ -902,14 +901,14 @@ def _run_fused(server, state, tracker, tcfg, settings, camera, writer, timing, i
     def fetch_worker():
         while (item := fetchq.get()) is not None:
             try:
-                host_out, ready, stamps, n, t_disp = item
-                t0 = time.perf_counter()
-                if ready is not None:
-                    ready.synchronize()
-                arr = host_out.numpy().copy()
-                t_get = time.perf_counter() - t0
-                tot["get"] += t_get
-                consume(stamps, n, arr, t_disp, t_get)
+                k, f0, host_out, host_rows, ready, stamps, n, t_disp = item
+                with tr.span("fetch_wait", k, (f0, f0 + n)) as fw:
+                    if ready is not None:
+                        ready.synchronize()
+                    in_hand = host_ns()  # the chunk's rows are on the host from here
+                    arr = host_out.numpy().copy()
+                    rows = None if host_rows is None else host_rows.numpy().copy()
+                consume(k, f0, stamps, n, arr, rows, in_hand, t_disp, fw.seconds)
             except Exception as e:  # noqa: BLE001 — raised on the main thread after the join
                 fetch_errors.append(e)
             finally:
@@ -920,13 +919,13 @@ def _run_fused(server, state, tracker, tcfg, settings, camera, writer, timing, i
         """The carry after every enqueued frame, with the rows of those frames written."""
         from ..checkpoint import save_checkpoint as save
 
-        fetchq.join()
+        f = prior + enqueued
+        with tr.span("checkpoint_wait", n_chunks - 1, (f, f)):
+            fetchq.join()
         if fetch_errors:
             raise fetch_errors[0]
-        t0 = time.perf_counter()
-        save(checkpoint_path, *runner.step.value(), feed.cursor(prior + enqueued))
-        tot["ckpt"] += time.perf_counter() - t0
-        tot["ckpts"] += 1
+        with tr.span("checkpoint", n_chunks - 1, (f, f)):
+            save(checkpoint_path, *runner.step.value(), feed.cursor(f))
 
     fetcher = threading.Thread(target=fetch_worker, daemon=True)
     fetcher.start()
@@ -940,90 +939,101 @@ def _run_fused(server, state, tracker, tcfg, settings, camera, writer, timing, i
         secs = _best_of(timed, lambda: runner.run(dev_imgs, dev_meta, scratch), lambda: runner.step.restore(snap))
         return secs * 1e3 / C, snap, scratch
 
-    def measure(state0, tracker0):
-        """Device time of the fused chunk, on the card the host's time to
-        enqueue it from an idle card, and with ``timing`` each stage's device
-        time, on the first full chunk from snapshots of the carry."""
-        nonlocal device_ms_per_frame, enqueue_ms_per_frame, calib, step_cost
-        device_ms_per_frame, snap, scratch = replayed_ms()
+    def measure(k, frames):
+        """Device time of the fused chunk (the graph's capture inside its
+        first run), on the card the host's time to enqueue it from an idle
+        card, and one step's counted work, on the first full chunk from
+        snapshots of the carry."""
+        nonlocal device_ms_per_frame, enqueue_ms_per_frame, step_cost, timing_replays
+        r0 = runner.step.replays
+        with tr.span("setup.timing_replays", k, frames):
+            device_ms_per_frame, snap, scratch = replayed_ms()
+        if runner.step.build_ns is not None:
+            tr.add("setup.capture", *runner.step.build_ns, k, frames, parent="setup")
         if cuda:
             torch.cuda.synchronize(dev)
-            t0 = time.perf_counter()
-            runner.run(dev_imgs, dev_meta, scratch)
-            enqueue_ms_per_frame = (time.perf_counter() - t0) * 1e3 / C
+            with tr.span("setup.enqueue_probe", k, frames) as probe:
+                runner.run(dev_imgs, dev_meta, scratch)
+            enqueue_ms_per_frame = probe.seconds * 1e3 / C
             runner.step.restore(snap)
-        step_cost = runner.step.cost_analysis()  # one eager step (COST_STEPS) on copies
-        if timing:
-            calib = _calibrate_stages(tcfg, settings, suite, camera, K, dtype, state0, tracker0, dev,
-                                      dev_imgs, dev_meta)
+        timing_replays += runner.step.replays - r0
+        with tr.span("setup.cost_count", k, frames):
+            step_cost = runner.step.cost_analysis()  # one eager step (COST_STEPS) on copies
 
     def flush():
-        nonlocal runner, n_chunks, enqueued
+        nonlocal runner, n_chunks, enqueued, timing_replays
         if not pend:
             return
-        n = len(pend)
-        slot = n_chunks % 2
-        t_pk0 = time.perf_counter()
-        if uploaded[slot] is not None:
-            uploaded[slot].synchronize()
-        imgs_np, meta_np = host_imgs[slot].numpy(), host_meta[slot].numpy()
-        imgs_np[n:] = 0
-        meta_np[n:] = 0.0
-        stamps = np.zeros(C)
-        for i, (stamp, im, window) in enumerate(pend):
-            imgs_np[i] = im
-            _pack_meta(meta_np[i], window, stamp)
-            stamps[i] = stamp
-        tot["pack"] += time.perf_counter() - t_pk0
-        t_up0 = time.perf_counter()
-        dev_imgs.copy_(host_imgs[slot], non_blocking=cuda)
-        dev_meta.copy_(host_meta[slot], non_blocking=cuda)
-        if cuda:
-            uploaded[slot] = torch.cuda.Event()
-            uploaded[slot].record()
-        tot["up"] += time.perf_counter() - t_up0
-        if runner is None:
-            t_s0 = time.perf_counter()
-            runner = ChunkRunner(tcfg, settings, suite, camera, K, dtype, state, tracker, dev)
-            if n == C:
-                r0 = runner.step.replays
-                measure(state, tracker)
-                tot["timing_replays"] += runner.step.replays - r0
-            tot["setup"] += time.perf_counter() - t_s0
-        traced = n_chunks == profile_chunk
-        if traced and cuda:
-            torch.cuda.synchronize(dev)  # the trace holds this chunk's device work alone
-        t_pr0 = time.perf_counter()
-        if traced:
-            # the same chunk's untraced device time, replayed from the same
-            # carry, is what the trace's busy time is read against
-            r0 = runner.step.replays
-            profiled["device_ms_per_frame"] = replayed_ms()[0]
-            tot["timing_replays"] += runner.step.replays - r0
-            if cuda:
-                torch.cuda.synchronize(dev)
-        with _profiling(profile_dir if traced else None, sync=dev if cuda else None):
-            t_disp0 = time.perf_counter()
-            outs = runner.run(dev_imgs, dev_meta)
-            host_out = torch.empty(outs.shape, dtype=dtype, pin_memory=cuda)
-            host_out.copy_(outs, non_blocking=cuda)
-            ready = None
-            if cuda:
-                ready = torch.cuda.Event()
-                ready.record()
-            t_disp = time.perf_counter() - t_disp0
-        if traced:
-            profiled.update(chunk=n_chunks, frames=n, s=time.perf_counter() - t_pr0)
-        tot["disp"] += t_disp
+        n, k = len(pend), n_chunks
+        f0 = prior + enqueued
+        frames = (f0, f0 + n)
+        slot = k % 2
+        with tr.span("chunk", k, frames):
+            with tr.span("chunk_pack", k, frames):
+                if uploaded[slot] is not None:
+                    uploaded[slot].synchronize()
+                imgs_np, meta_np = host_imgs[slot].numpy(), host_meta[slot].numpy()
+                imgs_np[n:] = 0
+                meta_np[n:] = 0.0
+                stamps = np.zeros(C)
+                for i, (stamp, im, window) in enumerate(pend):
+                    imgs_np[i] = im
+                    _pack_meta(meta_np[i], window, stamp)
+                    stamps[i] = stamp
+            with tr.span("upload", k, frames):
+                dev_imgs.copy_(host_imgs[slot], non_blocking=cuda)
+                dev_meta.copy_(host_meta[slot], non_blocking=cuda)
+                if cuda:
+                    uploaded[slot] = torch.cuda.Event()
+                    uploaded[slot].record()
+            if runner is None:
+                with tr.span("setup", k, frames):
+                    with tr.span("setup.runner", k, frames):
+                        runner = ChunkRunner(tcfg, settings, suite, camera, K, dtype, state, tracker, dev,
+                                             stamps=stamped)
+                    if n == C:
+                        measure(k, frames)
+            traced = k == profile_chunk
+            if traced and cuda:
+                torch.cuda.synchronize(dev)  # the trace holds this chunk's device work alone
+            with tr.span("profile", k, frames) if traced else contextlib.nullcontext() as held:
+                if traced:
+                    # the same chunk's untraced device time, replayed from the same
+                    # carry, is what the trace's busy time is read against
+                    r0 = runner.step.replays
+                    profiled["device_ms_per_frame"] = replayed_ms()[0]
+                    timing_replays += runner.step.replays - r0
+                    if cuda:
+                        torch.cuda.synchronize(dev)
+                with _profiling(profile_dir if traced else None, sync=dev if cuda else None):
+                    with tr.span("dispatch", k, frames) as disp:
+                        outs = runner.run(dev_imgs, dev_meta, stamps=dev_stamps)
+                        host_out = torch.empty(outs.shape, dtype=dtype, pin_memory=cuda)
+                        host_out.copy_(outs, non_blocking=cuda)
+                        host_rows = None
+                        if stamped:
+                            host_rows = torch.empty(dev_stamps.shape, dtype=torch.int64, pin_memory=cuda)
+                            host_rows.copy_(dev_stamps, non_blocking=cuda)
+                        ready = None
+                        if cuda:
+                            ready = torch.cuda.Event()
+                            ready.record()
+            if traced:
+                profiled.update(chunk=k, frames=n, s=held.seconds)
         if debug_nans():
             st = runner.step.value()[0]
             check_finite(f"filter state after the chunk ending t={stamps[n - 1]}", st.Sigma, st.X.A.x, st.X.Q.a)
-        fetchq.put((host_out, ready, stamps, n, t_disp))
+        fetchq.put((k, f0, host_out, host_rows, ready, stamps, n, disp.seconds))
         pend.clear()
         n_chunks += 1
         enqueued += n
 
-    feed = FrameFeed(server, state, K, dtype, dev, tot, sim=sim, cursor=cursor)
+    feed = FrameFeed(server, state, K, dtype, dev, tr, sim=sim, cursor=cursor)
+    clock = None
+    if trace:
+        from ..kernels.stamp import clock_offset
+
+        clock = clock_offset(dev)
     t_begin = time.perf_counter()
     try:
         for state, stamp, im, window in feed:
@@ -1054,29 +1064,36 @@ def _run_fused(server, state, tracker, tcfg, settings, camera, writer, timing, i
         state = tree_unflatten([x.clone() for x in leaves], spec)
     frames = done["frames"]
     per = lambda s: round(s * 1e3 / max(frames, 1), 3)  # noqa: E731
+    secs = tr.seconds
     summary = _summary(state, settings, frames, elapsed, out_stamps, positions,
                        np.reshape(feature_ids, (-1, N)))
     summary["frames"] = prior + frames  # with the frames before a resumed checkpoint
     summary.update(_decode_summary(server))
-    if tot["ckpts"]:
-        summary["checkpoint"] = {"saves": tot["ckpts"], "ms_per_save": round(tot["ckpt"] * 1e3 / tot["ckpts"], 3)}
+    if tr.counts["checkpoint"]:
+        summary["checkpoint"] = {"saves": tr.counts["checkpoint"],
+                                 "ms_per_save": round(secs["checkpoint"] * 1e3 / tr.counts["checkpoint"], 3)}
+    capture = secs["setup.capture"]
     summary.update({
-        "dispatch_ms_per_frame": per(tot["disp"] + tot["up"]),
-        "fetch_ms_per_frame": per(tot["get"]),
-        "write_ms_per_frame": per(tot["wr"]),
+        "dispatch_ms_per_frame": per(secs["dispatch"] + secs["upload"]),
+        "fetch_ms_per_frame": per(secs["fetch_wait"]),
+        "write_ms_per_frame": per(secs["write"]),
         "host_ms_per_frame": {
-            "iter_wait": per(tot["iter"]),
-            "imu_window_asm": per(tot["asm"]),
-            "chunk_pack": per(tot["pack"]),
-            "upload": per(tot["up"]),
-            "dispatch": per(tot["disp"]),
+            "iter_wait": per(secs["iter_wait"]),
+            "imu_window_asm": per(secs["imu_window_asm"]),
+            "chunk_pack": per(secs["chunk_pack"]),
+            "upload": per(secs["upload"]),
+            "dispatch": per(secs["dispatch"]),
         },
         "searched_frame_fraction": round(done["searched"] / max(frames, 1), 3),
-        "setup_s": tot["setup"],
+        "setup_s": secs["setup"],
+        # the set-up's parts; the capture runs inside the first timing replay
+        "setup_parts_s": {"runner": secs["setup.runner"], "capture": capture,
+                          "timing_replays": secs["setup.timing_replays"] - capture,
+                          "enqueue_probe": secs["setup.enqueue_probe"], "cost_count": secs["setup.cost_count"]},
     })
     if runner is not None and runner.step.graph is not None:
         summary["graph"] = {"capture_s": runner.step.capture_s, "pool_bytes": runner.step.pool_bytes,
-                            "replays": runner.step.replays, "timing_replays": tot["timing_replays"]}
+                            "replays": runner.step.replays, "timing_replays": timing_replays}
     if device_ms_per_frame is not None:
         summary["device_ms_per_frame"] = round(device_ms_per_frame, 3)
     if step_cost is not None:
@@ -1087,11 +1104,37 @@ def _run_fused(server, state, tracker, tcfg, settings, camera, writer, timing, i
         summary["achieved_hbm_gbps"] = step_cost["bytes accessed"] / (device_ms_per_frame * 1e6)
     if enqueue_ms_per_frame is not None:
         summary["enqueue_ms_per_frame"] = round(enqueue_ms_per_frame, 4)
-    if calib is not None:
-        summary["device_sections_ms"] = {k: round(v * 1e3, 3) for k, v in calib.items()}
+    if timing:
+        counts = {"features_full": done["searched"], "features_skip": frames - done["searched"]}
+        summary["device_sections_ms"] = {
+            lab: round(v * 1e3 / counts.get(lab, frames), 3) if counts.get(lab, frames) else 0.0
+            for lab, v in stage_s.items()}
     if profiled:
         summary["profile"] = profiled
+    if trace:
+        summary["trace"] = _trace_block(tr, frame_rows, clock, clock_offset(dev), prior, C)
     return state, summary
+
+
+def _trace_block(tr: Tracer, frame_rows: list, clock: tuple, clock_end: tuple, prior: int, C: int) -> dict:
+    """A traced run's ``trace`` block: the frames' stamps moved to the host
+    clock by the offset taken before the run (``clock``; ``drift_ns`` is how
+    far the one taken after it, ``clock_end``, moved), the spans (the feed's
+    given their chunk) and the idle seconds by host span."""
+    offset, width = clock
+    frames = [[f, k, hand, *(t + offset for t in ts)] for f, k, hand, *ts in frame_rows]
+    spans = [(name, t0, t1, (f0 - prior) // C if k < 0 <= f0 else k, f0, f1, parent, thread)
+             for name, t0, t1, k, f0, f1, parent, thread in tr.events]
+    b, e = 3 + FRAME_BEGIN, 3 + FRAME_END
+    return {
+        "stamps": list(STAMPS),
+        "frame_fields": ["frame", "chunk", "in_hand_ns", *STAMPS],
+        "clock": {"host": "time.time_ns", "offset_ns": offset, "width_ns": width,
+                  "drift_ns": clock_end[0] - offset},
+        "frames": frames,
+        "spans": spans,
+        "idle_by_host_s": idle_by_host([[r[0], r[b], r[e]] for r in frames], spans),
+    }
 
 
 class FusedInputs(NamedTuple):
@@ -1118,8 +1161,7 @@ def collect_fused_inputs(dataset, config: dict, limit_frames: int, dtype: torch.
     reader = _open_reader(dataset, config, mode, camera_yaml)
     settings, tcfg, camera, state, tracker, imu_window = _setup(reader, config, dtype, dev)
     imgs, metas = [], []
-    tot = {"iter": 0.0, "asm": 0.0}
-    for state, stamp, im, window in FrameFeed(DataServer(reader), state, imu_window, dtype, dev, tot):
+    for state, stamp, im, window in FrameFeed(DataServer(reader), state, imu_window, dtype, dev, Tracer()):
         row = np.zeros(_meta_width(imu_window))
         _pack_meta(row, window, stamp)
         imgs.append(im)
@@ -1196,8 +1238,11 @@ def main(argv=None):
     ap.add_argument("--start", type=float, default=None)
     ap.add_argument("--stop", type=float, default=None)
     ap.add_argument("--timing", action="store_true",
-                    help="write timing.csv: calibrated device times per stage on the fused path, "
-                         "host wall times on the per-frame loop")
+                    help="write timing.csv: each frame's device times per stage, stamped inside the frame "
+                         "step, on the fused path; host wall times on the per-frame loop")
+    ap.add_argument("--trace", action="store_true",
+                    help="fused path: write <output>/trace.jsonl, each frame's stage stamps and the host's "
+                         "spans on one clock, and the device's idle time between frames by host span")
     ap.add_argument("--chunk", type=int, default=16,
                     help="frames per fused chunk (1 = the eager per-frame loop)")
     ap.add_argument("--limitRate", type=float, default=0.0, dest="limit_rate",
@@ -1219,6 +1264,8 @@ def main(argv=None):
     ap.add_argument("--live", type=int, default=None, metavar="PORT",
                     help="serve a live map view at http://127.0.0.1:PORT/ (fused path)")
     args = ap.parse_args(argv)
+    if args.trace and not args.output:
+        ap.error("--trace writes trace.jsonl into --output")
 
     config = load_config(args.config)
     main_cfg = config.get("main", {}) or {}
@@ -1232,8 +1279,10 @@ def main(argv=None):
         chunk_size=args.chunk, limit_rate=args.limit_rate, profile_dir=args.profile,
         dtype=torch.float64 if args.f64 else None, simvis=args.simvis, simimu=args.simimu,
         checkpoint_every=args.checkpoint_every, checkpoint_path=args.checkpoint_path, resume=args.resume,
-        live_port=args.live,
+        live_port=args.live, trace=args.trace,
     )
+    if args.trace:
+        write_trace(summary["trace"], os.path.join(args.output, "trace.jsonl"))
     status = "OK" if summary.get("healthy") else "UNHEALTHY (NaN/scale)"
     print(f"Processed {summary['frames']} frames at {summary['fps']:.1f} fps; "
           f"{summary['landmarks']} landmarks live; filter {status}.")

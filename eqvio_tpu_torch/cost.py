@@ -13,9 +13,10 @@ so :func:`count` runs the step once, eagerly, under a
   of a reduction; the QR, Cholesky, LU and triangular solves by their
   textbook counts; ``max_pool2d`` one comparison per window element; the
   KLT op (``eqvio_tpu_torch::klt_track_pyramid``) by
-  :func:`kernels.klt.klt_work`; copies, views, indexing and sorts none.
+  :func:`kernels.klt.klt_work`; copies, views, indexing, sorts and the
+  clock stamps (``eqvio_tpu_torch::frame_stamp``) none.
 - bytes: every op's input and output tensors, each read or written once
-  (XLA's "bytes accessed"); views move none, and a broadcast (stride-0)
+  (XLA's "bytes accessed"); views and stamps move none, and a broadcast (stride-0)
   dim is counted once.  On the card each op is a kernel of its own, in the
   graph too, so this is the traffic those kernels do.
 
@@ -35,8 +36,10 @@ from torch.utils.flop_counter import flop_registry
 _REDUCTIONS = {"sum", "mean", "prod", "amax", "amin", "max", "min", "argmax", "argmin", "any", "all",
                "linalg_vector_norm", "norm", "var", "std", "var_mean", "std_mean", "logsumexp", "cumsum",
                "cumprod", "aminmax"}
-# allocations, and views whose schema does not say so: no kernel, no traffic
-_NO_BYTES = {"empty", "empty_like", "new_empty", "empty_strided", "new_empty_strided", "_unsafe_view", "lift_fresh"}
+# allocations, and views whose schema does not say so: no kernel, no traffic; and
+# the frame step's clock stamps (kernels/stamp.py), which measure the step and are no part of its work
+_NO_BYTES = {"empty", "empty_like", "new_empty", "empty_strided", "new_empty_strided", "_unsafe_view", "lift_fresh",
+             "frame_stamp"}
 
 
 def _numel(t: torch.Tensor) -> int:

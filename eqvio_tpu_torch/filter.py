@@ -40,6 +40,7 @@ from .group import (
 from .lie import SE3, so3_from_vectors
 from .matrices import CoordinateSuite, get_suite, state_matrix_A_discrete
 from .runtime import const
+from .stamps import LIFECYCLE_END, stamp
 from .states import DUMMY_POINT, IMU, SENSOR_DIM, VIOState, integrate_system, measure_system, state_identity
 
 
@@ -824,6 +825,7 @@ def process_vision(
     if not do_update:
         return state._replace(Sigma=_mask_reset(state.Sigma, keep_vec, add_diag, settings))
     vis_upd = (vis_tracked & kept) | new
+    stamp(LIFECYCLE_END)
     return update_vision(
         state, pixels, vis_upd, camera, settings, suite, surgery=(keep_vec, add_diag)
     )

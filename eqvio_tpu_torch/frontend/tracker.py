@@ -21,6 +21,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..stamps import GATE_BEGIN, GATE_END, stamp
 from .detector import detect_features, equalize_histogram
 from .klt import track_features
 from .prng import fold_in, prng_key
@@ -94,6 +95,7 @@ def tracker_step(
         state.pyramid, pyr, state.positions, state.mask,
         predicted=predicted, win=config.win_size, max_error=config.max_error,
     )
+    stamp(GATE_BEGIN)
     if config.ransac_inlier_threshold > 0:
         key = fold_in(prng_key(ransac_seed(), device), state.next_id)
         tracked = ransac_epipolar_mask(
@@ -104,6 +106,7 @@ def tracker_step(
         )
     if config.flow_outlier_threshold > 0:
         tracked = _median_flow_gate(state.positions, new_pos, tracked, config.flow_outlier_threshold)
+    stamp(GATE_END)
     positions = torch.where(tracked[:, None], new_pos, state.positions)
     ids = torch.where(tracked, state.ids, torch.full_like(state.ids, -1))
     mask = tracked

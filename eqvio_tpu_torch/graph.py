@@ -8,12 +8,12 @@ call, and on the card each call replays the one captured graph.
 from __future__ import annotations
 
 import gc
-import time
 
 import torch
 from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
 from . import cost
+from .stamps import host_ns
 
 WARMUP_STEPS = 2  # eager steps on a side stream before capture (library handles, allocator)
 
@@ -51,7 +51,10 @@ class GraphStep:
         self.device = device
         self.graph = None
         self._out = None
-        self.capture_s = None  # seconds to capture and instantiate the graph
+        # host clock (stamps.host_ns) at the start and end of the whole
+        # capture: warm-up steps, capture and instantiation
+        self.build_ns = None
+        self.capture_s = None  # seconds of the capture and instantiation alone, on the same clock
         self.pool_bytes = None  # device memory the capture reserved for the graph's pool
         self.replays = 0  # graph launches
 
@@ -62,6 +65,7 @@ class GraphStep:
         return out
 
     def _capture(self):
+        t_build = host_ns()
         saved = self.snapshot()
         cur = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
@@ -78,7 +82,7 @@ class GraphStep:
         gc.collect()
         torch.cuda.empty_cache()  # as the capture does first, so the difference is the pool's
         reserved = torch.cuda.memory_reserved(self.device)
-        t0 = time.perf_counter()
+        t0 = host_ns()
         graph = torch.cuda.CUDAGraph()
         collecting = gc.isenabled()
         gc.disable()
@@ -89,7 +93,8 @@ class GraphStep:
             if collecting:
                 gc.enable()
         torch.cuda.synchronize(self.device)
-        self.capture_s = time.perf_counter() - t0
+        self.build_ns = (t_build, host_ns())
+        self.capture_s = (self.build_ns[1] - t0) * 1e-9
         self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
         self.graph, self._out = graph, out
 

@@ -13,9 +13,13 @@ port's own per-frame loop, on the hermetic synthetic ASL scene of
   in dense covariance.
 - ``predict_state``, ``process_vision(do_update=False)`` and the device-gated
   tracker step equal their JAX counterparts.
+- The tracer: stamps off leave the step's ops as they were; on, they add one
+  stamp op per stage boundary and nothing else.  The traced run's frames,
+  stamps, spans, set-up parts and idle attribution hold together.
 """
 
 import contextlib
+import json
 import os
 
 import jax
@@ -37,7 +41,10 @@ from eqvio_tpu_torch import convert
 from eqvio_tpu_torch import filter as TF
 from eqvio_tpu_torch.data import SyntheticASLReader, SyntheticUZHFPVReader
 from eqvio_tpu_torch.frontend import tracker as ttracker
+from eqvio_tpu_torch.graph import broadcast_lanes
 from eqvio_tpu_torch.io import bench_config, template_config
+from eqvio_tpu_torch.io.timing import SPAN_FIELDS, write_trace
+from eqvio_tpu_torch import stamps as S
 from tests.test_torch_core import (
     F64,
     NCAP,
@@ -100,11 +107,12 @@ def _template_config(predictions: bool) -> dict:
 
 @pytest.fixture(scope="module")
 def runs(scene):
-    """The JAX fused run, the port's fused run (both with ``timing``) and the
-    port's per-frame run, each with its recorded writer rows and CSVs."""
+    """The JAX fused run, the port's fused run (both with ``timing``; the
+    port's traced too) and the port's per-frame run, each with its recorded
+    writer rows and CSVs."""
     return _run_all(scene, "bench", _template_config(False), (
         ("jax", jax_run_opt, dict(chunk_size=CHUNK, timing=True, dtype=jnp.float64)),
-        ("fused", torch_run_opt, dict(chunk_size=CHUNK, timing=True, device="cpu")),
+        ("fused", torch_run_opt, dict(chunk_size=CHUNK, timing=True, trace=True, device="cpu")),
         ("frame", torch_run_opt, dict(chunk_size=1, device="cpu")),
     ))
 
@@ -399,3 +407,138 @@ def test_profile_dir_writes_a_trace(tmp_path):
     assert "graph" not in summary  # the CPU calls the step directly
     assert "profile" not in summary  # the whole run was traced
 
+
+
+# the fused path's summary on the CPU without timing or trace, before the set-up's parts
+FUSED_KEYS = {"achieved_gflops", "achieved_hbm_gbps", "decode_ms_per_frame", "decoder", "device_ms_per_frame",
+              "dispatch_ms_per_frame", "feature_ids", "fetch_ms_per_frame", "final_position", "flops_per_frame",
+              "fps", "frames", "hbm_bytes_per_frame", "healthy", "host_ms_per_frame", "landmarks", "nan",
+              "positions", "searched_frame_fraction", "setup_s", "sigma_pd", "stamps", "write_ms_per_frame"}
+SETUP_PARTS = {"runner", "capture", "timing_replays", "enqueue_probe", "cost_count"}
+
+
+def _is_stamp(op) -> bool:
+    return op._schema.name == "eqvio_tpu_torch::frame_stamp"
+
+
+class _OpRecorder(TorchDispatchMode):
+    """Every op the block issues, with the slot of each stamp."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops.append((func, args[1] if _is_stamp(func) else None))
+        return func(*args, **(kwargs or {}))
+
+
+def test_stamps_add_only_their_ops_to_the_step():
+    """Without stamps the frame step issues no stamp op (so the graph the card
+    captures is the one without the tracer); with them, under the host-sync
+    guard, the same ops plus one stamp per stage boundary, in order, and the
+    cost count is the same.  A lane batch does not stamp."""
+    reader, cfg, dtype = _guard_case("bench")
+    imgs, meta, state, tracker, settings, tcfg, camera, K = fused_inputs(reader, cfg, 3, "cpu", dtype)
+    runners = {on: torch_run_opt.ChunkRunner(tcfg, settings, settings.suite, camera, K, dtype, state, tracker,
+                                             torch.device("cpu"), stamps=on) for on in (False, True)}
+    ops = {}
+    for on, r in runners.items():
+        r.run(imgs[:1], meta[:1])
+        with no_host_sync_or_host_data(), _OpRecorder() as rec:
+            r.run(imgs[1:2], meta[1:2])
+        ops[on] = rec.ops
+    assert not any(_is_stamp(op) for op, _ in ops[False]) and len(ops[False]) > 1000
+    assert [op for op, _ in ops[True] if not _is_stamp(op)] == [op for op, _ in ops[False]]
+    assert [slot for op, slot in ops[True] if _is_stamp(op)] == list(range(len(S.STAMPS)))
+    assert runners[False].row is None and bool((runners[True].row.diff() >= 0).all())
+    off, on = (runners[k].step.cost_analysis() for k in (False, True))
+    assert (on["flops"], on["bytes accessed"], on["ops"]) == (off["flops"], off["bytes accessed"],
+                                                               off["ops"] + len(S.STAMPS))
+    with pytest.raises(ValueError):
+        torch_run_opt.ChunkRunner(tcfg, settings, settings.suite, camera, K, dtype,
+                                  *broadcast_lanes((state, tracker), 2), torch.device("cpu"), stamps=True)
+
+
+def test_summary_keys_and_setup_parts(runs):
+    """Untraced, the summary has the keys it had and the set-up's parts; the
+    parts sum to the set-up; the traced run adds its block alone."""
+    reader = SyntheticASLReader(end_time=1.0, width=160, height=120, frame_freq=10.0, num_points=100)
+    _, off = torch_run_opt.run_dataset(reader, bench_config(), device="cpu", chunk_size=4, limit_frames=4)
+    assert set(off) == FUSED_KEYS | {"setup_parts_s"}
+    _, on, _ = runs["fused"]
+    assert set(on) == FUSED_KEYS | {"setup_parts_s", "device_sections_ms", "trace"}
+    for s in (off, on):
+        parts = s["setup_parts_s"]
+        assert set(parts) == SETUP_PARTS and all(v >= 0 for v in parts.values())
+        assert parts["capture"] == parts["enqueue_probe"] == 0.0  # the CPU captures no graph
+        assert sum(parts.values()) == pytest.approx(s["setup_s"], rel=0.01)
+
+
+def test_traced_frames_and_stages(runs):
+    """Each frame's stamps do not decrease, frames follow one another in
+    order with their ids and chunks, each row is in hand after its frame
+    ended, the timing rows' stages sum to the frame's stamped span, and the
+    idle seconds by host span are the gaps between frames."""
+    _, s, out_dir = runs["fused"]
+    tb = s["trace"]
+    assert tb["stamps"] == list(S.STAMPS) and tb["clock"]["offset_ns"] == 0  # the CPU stamps the host clock
+    col = {f: i for i, f in enumerate(tb["frame_fields"])}
+    rows = np.asarray(tb["frames"], dtype=np.int64)
+    assert rows[:, col["frame"]].tolist() == list(range(FRAMES))
+    assert rows[:, col["chunk"]].tolist() == [f // CHUNK for f in range(FRAMES)]
+    st = rows[:, col["frame_begin"]:col["frame_end"] + 1]
+    assert (np.diff(st, axis=1) >= 0).all() and (st[1:, 0] >= st[:-1, -1]).all()
+    assert (rows[:, col["in_hand_ns"]] >= st[:, -1]).all()
+    with open(out_dir / "timing.csv") as f:
+        header = [c.strip() for c in f.readline().split(",")]
+        table = np.array([[float(c) for c in line.split(",")] for line in f])
+    stages = table[:, header.index("features")] + table[:, header.index("total vision update")]
+    np.testing.assert_allclose(stages, (st[:, S.VISION_END] - st[:, S.FRAME_BEGIN]) * 1e-9, rtol=1e-4)
+    sections = s["device_sections_ms"]
+    assert sections["features"] == pytest.approx((st[:, S.TRACKER_END] - st[:, S.FRAME_BEGIN]).mean() * 1e-6,
+                                                 abs=1e-3)
+    assert sections["features_full"] > 0 and sections["features_skip"] >= 0
+    gaps = (st[1:, 0] - st[:-1, -1]) * 1e-9
+    assert sum(tb["idle_by_host_s"].values()) == pytest.approx(gaps.sum(), rel=1e-9)
+
+
+def test_traced_spans_nest(runs, tmp_path):
+    """Every span lies in its chunk's frames and inside a span of its parent
+    on its thread; the fetch thread's spans are not the main thread's; the
+    JSON lines hold the block."""
+    _, s, _ = runs["fused"]
+    spans = [dict(zip(SPAN_FIELDS, sp)) for sp in s["trace"]["spans"]]
+    names = {sp["name"] for sp in spans}
+    assert {"iter_wait", "imu_window_asm", "chunk", "chunk_pack", "upload", "setup", "setup.runner",
+            "setup.timing_replays", "setup.cost_count", "dispatch", "fetch_wait", "write"} <= names
+    for sp in spans:
+        assert sp["start_ns"] <= sp["end_ns"]
+        assert 0 <= sp["chunk"] and sp["chunk"] * CHUNK <= sp["frame_begin"] <= sp["frame_end"] <= \
+            (sp["chunk"] + 1) * CHUNK, sp
+        assert (sp["thread"] == "main") == (sp["name"] not in ("fetch_wait", "write")), sp
+        if sp["parent"] is not None:
+            assert any(p["name"] == sp["parent"] and p["thread"] == sp["thread"] and p["chunk"] == sp["chunk"]
+                       and p["start_ns"] <= sp["start_ns"] and sp["end_ns"] <= p["end_ns"] for p in spans), sp
+    assert all(sp["parent"] == "setup" for sp in spans if sp["name"].startswith("setup."))
+    write_trace(s["trace"], str(tmp_path / "trace.jsonl"))
+    with open(tmp_path / "trace.jsonl") as f:
+        kinds = [json.loads(line)["kind"] for line in f]
+    assert kinds == ["clock"] + ["frame"] * FRAMES + ["span"] * len(spans) + ["idle_by_host_s"]
+
+
+def test_cli_trace_writes_the_block(monkeypatch, tmp_path):
+    block = {"stamps": list(S.STAMPS), "frame_fields": ["frame"], "clock": {"offset_ns": 0}, "frames": [[0]],
+             "spans": [], "idle_by_host_s": {}}
+    seen = {}
+
+    def fake_run(dataset, config, **kwargs):
+        seen.update(kwargs)
+        return None, {"healthy": True, "frames": 1, "fps": 1.0, "landmarks": 0, "trace": block}
+
+    monkeypatch.setattr(torch_run_opt, "load_config", lambda path: {})
+    monkeypatch.setattr(torch_run_opt, "run_dataset", fake_run)
+    torch_run_opt.main(["d", "c.yaml", "--trace", "--output", str(tmp_path)])
+    assert seen["trace"] and (tmp_path / "trace.jsonl").read_text().count("\n") == 3
+    with pytest.raises(SystemExit):
+        torch_run_opt.main(["d", "c.yaml", "--trace"])
