@@ -7,9 +7,10 @@ Phases, each printing one line; any failure exits nonzero before the result:
 
 1. device: needs ``torch.cuda.is_available()``; prints ``nvidia-smi``'s card
    name and power limit.
-2. build: compiles ``eqvio_tpu_torch/csrc/klt_cuda.cu`` with nvcc (sm_90a),
-   or loads the library an earlier run built; prints ptxas's registers and
-   spills per kernel instantiation, kept beside the library.
+2. build: compiles ``eqvio_tpu_torch/csrc/klt_cuda.cu`` and
+   ``ransac_cuda.cu`` with nvcc (sm_90a), or loads the libraries an earlier
+   run built; prints ptxas's registers and spills per kernel instantiation,
+   kept beside each library.
 3. kernel: the CUDA KLT kernel against its plain PyTorch version on the
    card in float32, max |dpos| <= 2e-4 px over tracked features and
    identical tracked masks, on (a) a frame pair of the in-memory benchmark
@@ -31,9 +32,18 @@ Phases, each printing one line; any failure exits nonzero before the result:
    of the benchmark pair, each with its own pixel noise, tracked in one
    launch of 8 x 30 blocks: within 2e-4 px of the plain version with equal
    masks, and every lane bitwise equal to its own single-lane launch; its
-   device, host, plain and bound times.  The racing scene (60 s, 1800
-   frames) and the MH_03 scene (132 s, 2,635 frames) are built once, before
-   this phase, and shared with phases 7 and 10.
+   device, host, plain and bound times.  (f) The RANSAC gate kernel
+   (``csrc/ransac_cuda.cu``) against its plain version on the inputs the
+   tracker hands it over the first 220 frames of the MH_03 proxy (its
+   config's gate: 34 hypotheses) and of the racing proxy
+   (``configs/config_UZHFPV.yaml``'s gate: 20 hypotheses), with each
+   config's ``min_inliers`` and with 0: masks bitwise the kernel's numpy
+   mirror's, and the plain version's or near ties, counted
+   (:func:`phase_gate`); the kernel's device and host time at both shapes
+   and at 8 lanes in one launch (every lane bitwise its single-lane launch)
+   against the plain version's, eager and replayed from a graph.  The racing
+   scene (60 s, 1800 frames) and the MH_03 scene (132 s, 2,635 frames) are
+   built once, before this phase, and shared with phases 7 and 10.
 4. slice: the eager per-frame ``run_dataset(chunk_size=1)`` on ``cuda``
    (float32) over the benchmark scene cut
    to 8 s (>= 100 frames): finite and healthy, >= 10 landmarks, one KLT
@@ -52,9 +62,10 @@ Phases, each printing one line; any failure exits nonzero before the result:
    stage sections of ``device_sections_ms`` sum to the frames' mean span
    from ``frame_begin`` to ``vision_end``.  The run traces its chunk
    ``PROFILE_CHUNK`` alone (``profile_chunk``: from an idle card to the end
-   of its device work); the trace must show ``klt_pyramid_kernel`` once and
-   ``frame_stamp_kernel`` eight times in each graph launch that the tracer
-   recorded whole (:func:`traced_chunk`), and the KLT
+   of its device work); the trace must show ``klt_pyramid_kernel`` and
+   ``ransac_gate_kernel`` once and ``frame_stamp_kernel`` eight times in
+   each graph launch that the tracer recorded whole (:func:`traced_chunk`),
+   the summary's ``ransac_kernels_per_step`` must read 1, and the KLT
    wrapper, which does not count calls made under capture, must count the
    eager warm-ups before each capture and nothing else.  Prints fused and
    eager ms/frame, the device ms/frame and host decomposition, and from the
@@ -73,7 +84,8 @@ Phases, each printing one line; any failure exits nonzero before the result:
    position RMSE <= 0.256 m after a similarity alignment; over the first 20
    frames the same tracked ids as an eager card run with positions within
    1e-4 m, and within 0.05 m of a CPU float64 run; one ``klt_pyramid_kernel``
-   and no ``frame_stamp_kernel`` per whole graph launch in its traced chunk.
+   and no ``frame_stamp_kernel`` or ``ransac_gate_kernel`` (the config's gate
+   is off) per whole graph launch in its traced chunk.
    The KLT wrapper's count is zeroed
    before each card run: one launch per frame in the eager run, and in the
    fused run exactly the eager warm-ups before its capture.  Prints
@@ -114,11 +126,12 @@ Phases, each printing one line; any failure exits nonzero before the result:
    fused on ``cuda`` in float32 with ``io.mh03_proxy_config``: position
    RMSE <= 0.056 m and scale within 0.05 of 1; over the first 20 frames the
    same tracked ids as an eager card run with positions within 1e-4 m, and
-   within 0.05 m of a CPU float64 run; one ``klt_pyramid_kernel`` per whole
-   graph launch in its traced chunk.  The KLT wrapper's count is zeroed
-   before each card run: one launch per frame in the eager run, and in the
-   fused run exactly the eager warm-ups before its one capture.  Prints
-   ms/frame, device ms/frame, the idle share and RMSE.
+   within 0.05 m of a CPU float64 run; one ``klt_pyramid_kernel`` and one
+   ``ransac_gate_kernel`` per whole graph launch in its traced chunk.  The
+   KLT wrapper's count is zeroed before each card run: one launch per frame
+   in the eager run, and in the fused run exactly the eager warm-ups before
+   its one capture.  Prints ms/frame, device ms/frame, the idle share and
+   RMSE.
 
 11. sequence batch: ``bench_batch_full_frame`` (``app/run_opt.py``) on the
    benchmark scene cut at 30 s (a shorter cut renders other frames), its
@@ -128,8 +141,9 @@ Phases, each printing one line; any failure exits nonzero before the result:
    frames against their own single-sequence ``ChunkRunner`` runs on the
    same noised frames (ids equal, positions within 1e-4 m, pixels within
    1e-3 px), those two runs more than 2e-3 px apart; 16 traced batched
-   frames with one ``klt_pyramid_kernel`` per whole graph launch and device
-   events per batched frame at most 64 above one lane's.  Prints
+   frames with one ``klt_pyramid_kernel`` and one ``ransac_gate_kernel`` per
+   whole graph launch and device events per batched frame at most 64 above
+   one lane's.  Prints
    ``full_frame_batch_fps``, per-sequence frames/s and
    ``full_frame_batch_gflops_per_s``, device ms per batched frame against one
    lane's, the batched KLT's time in the graph, and the counted operations
@@ -258,6 +272,8 @@ SIM_FLEET_CMP_FRAMES = 40  # (c): frames held against the cpu float64 fleet
 SIM_FLEET_TOL_M = 5e-3  # (c): float32 card against float64 cpu, about 1e-3 m over 20 frames on an H100
 SIM_WINDOW, SIM_WINDOW_START = 16, 100  # the traced frames of each simulation run
 MH03_SECONDS = 132.0
+GATE_FRAMES = 220  # phase 3(f): frames of each proxy whose gate inputs hold the RANSAC kernel to its plain version
+GATE_LANES = 8
 MH03_GATE_M = 0.056  # tests/test_proxy_slow.py:MH03_GATE
 MH03_SCALE_TOL = 0.05
 PROFILE_DIR = os.path.join(HERE, "build", "smoke_profile")  # build/ is git-ignored
@@ -368,13 +384,14 @@ def klt_in_graph_launches(device_events, replays):
     return list(per_replay.values()), klt
 
 
-def traced_chunk(name, summary, trace_dir, chunk, stamps=0):
+def traced_chunk(name, summary, trace_dir, chunk, stamps=0, gates=1):
     """A fused run's chunk ``chunk`` traced alone (``profile_chunk``): it
     must hold CHUNK frames and CHUNK graph launches.  Every launch replays
     the one captured graph, so a launch whose trace holds the most device
     events of any launch is complete, and each complete launch must show one
-    ``klt_pyramid_kernel`` and ``stamps`` ``frame_stamp_kernel`` (eight in a
-    stamped step, none in one built without stamps).  The tracer can lose
+    ``klt_pyramid_kernel``, ``gates`` ``ransac_gate_kernel`` (one with the
+    RANSAC gate on, none with it off) and ``stamps`` ``frame_stamp_kernel``
+    (eight in a stamped step, none in one built without stamps).  The tracer can lose
     the records at the start of a trace (on the H100, up to 1,235 events of
     the first two launches), so launches short of that count may lead the
     chunk, at most half of it, with at most one KLT and ``stamps`` stamps
@@ -392,19 +409,26 @@ def traced_chunk(name, summary, trace_dir, chunk, stamps=0):
         if c in stamped and "frame_stamp_kernel" in ev_name:
             stamped[c] += 1
     stamped = list(stamped.values())
+    gated = dict.fromkeys(replays, 0)
+    for ev_name, _, _, c in events:
+        if c in gated and "ransac_gate_kernel" in ev_name:
+            gated[c] += 1
+    gated = list(gated.values())
     full = max((n for n, _ in per_replay), default=0)
     lead = next((i for i, (n, _) in enumerate(per_replay) if n == full), 0)
     complete = per_replay[lead:]
     if len(replays) != CHUNK or lead > CHUNK // 2 or any(n != full or k != 1 for n, k in complete) or \
             any(k > 1 for _, k in per_replay[:lead]) or any(m != stamps for m in stamped[lead:]) or \
-            any(m > stamps for m in stamped[:lead]):
+            any(m > stamps for m in stamped[:lead]) or any(m != gates for m in gated[lead:]) or \
+            any(m > gates for m in gated[:lead]):
         fail(f"{name}: the trace shows {len(replays)} graph launches for {CHUNK} frames, klt_pyramid_kernel "
              f"launches per graph launch {[k for _, k in per_replay]}, {len(klt)} in all, frame_stamp_kernel "
-             f"{stamped} (expected {stamps}) (device events per graph launch {[n for n, _ in per_replay]}, "
+             f"{stamped} (expected {stamps}), ransac_gate_kernel {gated} (expected {gates}) (device events per "
+             f"graph launch {[n for n, _ in per_replay]}, "
              f"calls {calls})")
     lost = [full - n for n, _ in per_replay[:lead]]
-    note = (f"klt_pyramid_kernel once and frame_stamp_kernel {stamps} times in each of the {len(complete)} "
-            f"whole graph launches of {CHUNK} ({full} device events each)")
+    note = (f"klt_pyramid_kernel once, ransac_gate_kernel {gates} times and frame_stamp_kernel {stamps} times in "
+            f"each of the {len(complete)} whole graph launches of {CHUNK} ({full} device events each)")
     if lead:
         note += (f"; the tracer lost {lost} events at the start of the first {lead}, which show "
                  f"{[k for _, k in per_replay[:lead]]} KLT launches")
@@ -528,7 +552,8 @@ def replay_window(name, replay, snapshot, restore, trace_dir, dev, n) -> dict:
     same frames from the same snapshot under a trace.  The trace must show
     one graph launch per frame; a launch whose trace holds the most device
     events is whole.  Returns the device events per whole launch, the KLT
-    launches and durations (us) per graph launch, the idle share against
+    launches and durations (us) and the RANSAC gate launches per graph
+    launch, the idle share against
     the untraced device time, the largest kernels and a note."""
     import torch
 
@@ -546,9 +571,14 @@ def replay_window(name, replay, snapshot, restore, trace_dir, dev, n) -> dict:
     full = max(e for e, _ in per_replay)
     busy = busy_us(events) / 1e3 / n
     untraced = secs * 1e3 / n
+    gates = dict.fromkeys(replays, 0)
+    for ev_name, _, _, c in events:
+        if c in gates and "ransac_gate_kernel" in ev_name:
+            gates[c] += 1
     return {
         "events_per_launch": full,
         "klt_per_launch": [k for _, k in per_replay],
+        "gate_per_launch": list(gates.values()),
         "whole": [e == full for e, _ in per_replay],
         "klt_us": klt,
         "device_ms_per_frame": untraced,
@@ -683,6 +713,92 @@ def phase_sim(dev, card):
           f"{SIM_FLEET_TOL_M}), whose sequences lie at least {apart_c:.3g} m apart; inputs prepared on the host "
           f"in {prep_c:.1f} s ({card})", flush=True)
     return est_b
+
+
+def phase_gate(dev, mh03, cfg_mh03, racing, card) -> list:
+    """Phase 3(f): the RANSAC gate kernel against its plain version on the
+    inputs the tracker hands it over the first GATE_FRAMES frames of each
+    proxy with its benchmark cell's gate (MH_03: 34 hypotheses, 30 inliers;
+    racing: ``configs/config_UZHFPV.yaml``'s 20 hypotheses, 37 inliers),
+    once with the configuration's ``min_inliers`` and once with 0 (every
+    refit shows): the kernel's mask bit for bit its numpy mirror's
+    (``ransac_bench.kernel_mirror``), and the plain version's or a near tie
+    (``ransac_bench.near_tie``), counted by kind.  Then, on the frame with the most tracked slots, the
+    kernel alone (profiler, graph replay, host per call) against the plain
+    version (eager, and replayed from a graph as it runs in the frame step),
+    at both shapes, and at GATE_LANES lanes of MH_03 frames in one launch
+    (every lane bitwise its single-lane launch) against the plain version
+    under ``torch.func.vmap``.  Returns the kernel rows of the result JSON."""
+    import torch
+
+    from eqvio_tpu_torch.io import load_config
+    from eqvio_tpu_torch.kernels import klt_bench as B
+    from eqvio_tpu_torch.kernels import ransac as RK
+    from eqvio_tpu_torch.kernels import ransac_bench as RB
+
+    cfg_uzh = load_config(os.path.join(HERE, "configs", "config_UZHFPV.yaml"))
+    rows = []
+    for label, reader, cfg in (("MH_03", mh03, cfg_mh03), ("racing", racing, cfg_uzh)):
+        t0 = time.perf_counter()
+        inputs, kw = RB.gate_inputs(reader, cfg, GATE_FRAMES, dev)
+        args = (kw["threshold"], kw["hypotheses"], 8, kw["min_inliers"])
+        RK.ransac_mask.launches = 0
+        ties = [{}, {}]
+        for g in inputs:
+            for tally, a in zip(ties, (args, args[:3] + (0,))):
+                got, want = RK.ransac_mask(*g, *a), RK.ransac_mask_plain(*g, *a)
+                if not torch.equal(got.cpu(), RB.kernel_mirror(g, *a)):
+                    fail(f"gate ({label}, min_inliers {a[3]}): kernel {got.int().tolist()} is not its mirror's mask")
+                if not torch.equal(got, want):
+                    why = RB.near_tie(got, g, a[0], a[1], a[3])
+                    if why is None:
+                        fail(f"gate ({label}, min_inliers {a[3]}): kernel {got.int().tolist()} against plain "
+                             f"{want.int().tolist()}, no near tie")
+                    tally[why] = tally.get(why, 0) + 1
+        if RK.ransac_mask.launches != 2 * len(inputs):
+            fail(f"gate ({label}): {RK.ransac_mask.launches} launches for {2 * len(inputs)} calls")
+        g = max(inputs, key=lambda g: int(g.mask.sum()))
+        run = lambda: RK.ransac_mask(*g, *args)  # noqa: E731
+        plain = lambda: RK.ransac_mask_plain(*g, *args)  # noqa: E731
+        t = {"profiler_ms": B.profiler_ms(run, "ransac_gate_kernel"), "graph_ms": B.graph_ms(run),
+             "host_ms": B.host_ms(run), "plain_ms": B.cuda_ms(plain, reps=5),
+             "plain_graph_ms": B.graph_ms(plain, launches=1, replays=10)}
+        t["ms"] = t["profiler_ms"] if t["profiler_ms"] is not None else t["graph_ms"]
+        shape = f"K = {kw['hypotheses']}, N = {g.mask.shape[0]} ({int(g.mask.sum())} tracked)"
+        print(f"gate: {label}, {len(inputs)} frames' inputs ({time.perf_counter() - t0:.1f} s): masks bitwise the "
+              f"mirror's; equal to the plain version's but for near ties {ties[0]} (min_inliers "
+              f"{kw['min_inliers']}) and {ties[1]} (min_inliers 0); {shape}: device {t['ms']:.5f} ms (profiler {t['profiler_ms']}, graph replay "
+              f"{t['graph_ms']:.5f}), host {t['host_ms']:.5f} ms/call, plain {t['plain_ms']:.3f} ms eager and "
+              f"{t['plain_graph_ms']:.4f} ms replayed from a graph ({card})", flush=True)
+        rows.append({"name": "ransac_mask", "shape": f"{label}: {shape}", "route": "cuda",
+                     "source": "eqvio_tpu_torch/csrc/ransac_cuda.cu", "replaces": None,
+                     "near_ties": ties[0], "near_ties_min_inliers_0": ties[1], **t, "library_ms": None})
+        if label == "MH_03":
+            lanes_in = sorted(inputs, key=lambda g: -int(g.mask.sum()))[:GATE_LANES]
+            prev, curr, mask, key, ids = (torch.stack([getattr(g, f) for g in lanes_in]) for f in RB.GateInput._fields)
+            key = key[0]
+            gate_l = lambda p, c, m, i: RK.ransac_mask(p, c, m, key, i, *args)  # noqa: E731
+            plain_l = lambda p, c, m, i: RK.ransac_mask_plain(p, c, m, key, i, *args)  # noqa: E731
+            got = torch.func.vmap(gate_l)(prev, curr, mask, ids)
+            for b in range(GATE_LANES):
+                if not torch.equal(got[b], gate_l(prev[b], curr[b], mask[b], ids[b])):
+                    fail(f"gate lanes: lane {b} of the batched launch is not bitwise its single-lane launch")
+            run_l = lambda: torch.func.vmap(gate_l)(prev, curr, mask, ids)  # noqa: E731
+            plain_vm = lambda: torch.func.vmap(plain_l)(prev, curr, mask, ids)  # noqa: E731
+            tl = {"profiler_ms": B.profiler_ms(run_l, "ransac_gate_kernel"), "graph_ms": B.graph_ms(run_l),
+                  "host_ms": B.host_ms(run_l), "plain_ms": B.cuda_ms(plain_vm, reps=5),
+                  "plain_graph_ms": B.graph_ms(plain_vm, launches=1, replays=10)}
+            tl["ms"] = tl["profiler_ms"] if tl["profiler_ms"] is not None else tl["graph_ms"]
+            lanes_eq = sum(torch.equal(got[b], plain_l(prev[b], curr[b], mask[b], ids[b])) for b in range(GATE_LANES))
+            print(f"gate: {GATE_LANES} lanes of MH_03 frames under vmap, one launch: every lane bitwise its "
+                  f"single-lane launch, {lanes_eq} of {GATE_LANES} equal to the plain version; device "
+                  f"{tl['ms']:.5f} ms (profiler {tl['profiler_ms']}, graph replay {tl['graph_ms']:.5f}), host {tl['host_ms']:.5f} "
+                  f"ms/call, plain under vmap {tl['plain_ms']:.3f} ms eager and {tl['plain_graph_ms']:.4f} ms "
+                  f"replayed from a graph ({card})", flush=True)
+            rows.append({"name": "ransac_mask", "shape": f"{GATE_LANES} lanes x {shape}, one launch", "route": "cuda",
+                         "source": "eqvio_tpu_torch/csrc/ransac_cuda.cu", "replaces": None, **tl,
+                         "library_ms": None})
+    return rows
 
 
 def case_times(K, B, case) -> dict:
@@ -1031,10 +1147,12 @@ def phase_batch(card) -> dict:
                           one0.step.restore, os.path.join(PROFILE_DIR, "batch1"), dev, w)
     for label, win in (("batched", win_b), ("one lane", win_1)):
         whole_klt = [k for k, whole in zip(win["klt_per_launch"], win["whole"]) if whole]
+        whole_gate = [k for k, whole in zip(win["gate_per_launch"], win["whole"]) if whole]
         lead = win["whole"].index(True)
-        if any(k != 1 for k in whole_klt) or any(k > 1 for k in win["klt_per_launch"][:lead]) or lead > w // 2:
-            fail(f"batch ({label}): klt_pyramid_kernel launches per graph launch {win['klt_per_launch']} "
-                 f"(whole launches {win['whole']})")
+        if any(k != 1 for k in whole_klt + whole_gate) or lead > w // 2 or \
+                any(k > 1 for k in win["klt_per_launch"][:lead] + win["gate_per_launch"][:lead]):
+            fail(f"batch ({label}): klt_pyramid_kernel launches per graph launch {win['klt_per_launch']}, "
+                 f"ransac_gate_kernel {win['gate_per_launch']} (whole launches {win['whole']})")
     per_b, per_1 = win_b["events_per_launch"], win_1["events_per_launch"]
     if per_b > per_1 + BATCH_LAUNCH_SLACK:
         fail(f"batch: {per_b} device events per batched frame against {per_1} for one lane (limit "
@@ -1056,7 +1174,8 @@ def phase_batch(card) -> dict:
           flush=True)
     print(f"batch: traced frames {s}-{s + w - 1}: device {ms_b:.3f} ms per batched frame against one lane's "
           f"{ms_1:.3f} ({ms_b / ms_1:.2f}x for {BATCH_LANES} lanes); device events per frame {per_b} batched against "
-          f"{per_1} for one lane (limit +{BATCH_LAUNCH_SLACK}); klt_pyramid_kernel once per whole graph launch, "
+          f"{per_1} for one lane (limit +{BATCH_LAUNCH_SLACK}); klt_pyramid_kernel and ransac_gate_kernel once per whole "
+          f"graph launch, "
           f"{klt_ms:.5f} ms each in the graph (one lane's {sum(win_1['klt_us']) / len(win_1['klt_us']) / 1e3:.5f}); "
           f"{win_b['note']} ({card})", flush=True)
     print(f"batch: counted per batched frame {cost_b['flops'] / 1e6:.3f} MFLOP and {cost_b['bytes accessed'] / 1e6:.3f} "
@@ -1367,9 +1486,13 @@ def main() -> None:
     dev, _ = configure_runtime("cuda")
 
     # ---- 2. build ---------------------------------------------------------
+    from eqvio_tpu_torch.kernels import ransac as RK
+
     build_s = K.build_kernel()
-    print(f"build: klt_cuda.cu -> {os.path.relpath(K.build.BUILD_DIR, HERE)} in {build_s:.2f} s", flush=True)
-    ptxas = K.build.ptxas_summary(K._SOURCE)
+    gate_build_s = RK.build_kernel()
+    print(f"build: klt_cuda.cu in {build_s:.2f} s, ransac_cuda.cu in {gate_build_s:.2f} s -> "
+          f"{os.path.relpath(K.build.BUILD_DIR, HERE)}", flush=True)
+    ptxas = {**K.build.ptxas_summary(K._SOURCE), **K.build.ptxas_summary(RK._SOURCE)}
     print("ptxas: " + ("; ".join(f"{name}: {p['registers']} registers, {p['spill_bytes']} B spilled, "
                                  f"{p['smem_bytes']} B static smem" for name, p in ptxas.items())
                        or "no report beside the library"), flush=True)
@@ -1513,6 +1636,9 @@ def main() -> None:
           f"{lanes_t['host_ms']:.5f} ms/call, plain {lanes_t['plain_ms']:.4f} ms, bound {lanes_t['bound_ms']:.6f} ms "
           f"({lanes_t['bound_by']}) ({card})", flush=True)
 
+    # (f) the RANSAC gate kernel
+    gate_rows = phase_gate(dev, mh03, cfg_mh03, racing, card)
+
     # ---- 4. the slice on the card ----------------------------------------
     run_dataset(reader, cfg, device="cuda", chunk_size=1, limit_frames=5)  # warm-up: library handles, allocator
     K.klt_track_pyramid.launches = 0
@@ -1568,6 +1694,8 @@ def main() -> None:
              f"landmarks {fused['landmarks']}")
     if "graph" not in fused:
         fail("fused: the run captured no graph")
+    if fused.get("ransac_kernels_per_step") != 1:
+        fail(f"fused: the captured step holds {fused.get('ransac_kernels_per_step')} RANSAC gate kernels, not 1")
     # the wrapper counts eager launches only: the warm-up before the frame step's capture
     if warmup_launches != WARMUP_STEPS + COST_STEPS:
         fail(f"fused: the KLT wrapper counted {warmup_launches} eager launches, not the "
@@ -1678,7 +1806,8 @@ def main() -> None:
     if not np.isfinite(diff_cpu_r) or diff_cpu_r > CPU_TOL_M:
         fail(f"fisheye: max position difference to the cpu float64 run {diff_cpu_r} m (limit {CPU_TOL_M})")
     prof_r = fused_r["profile"]
-    _, events_r, _, klt_r, _, klt_note_r = traced_chunk("fisheye", fused_r, RACING_PROFILE_DIR, PROFILE_CHUNK)
+    _, events_r, _, klt_r, _, klt_note_r = traced_chunk("fisheye", fused_r, RACING_PROFILE_DIR, PROFILE_CHUNK,
+                                                         gates=0)
     ms_fused_r = (wall_r - fused_r["setup_s"] - prof_r["s"]) * 1e3 / (frames_r - prof_r["frames"])
     busy_r = busy_us(events_r) / 1e3 / CHUNK
     idle_r = 1.0 - busy_r / prof_r["device_ms_per_frame"]
@@ -1893,7 +2022,7 @@ def main() -> None:
         "bound_ms": gate_bound,
         "bound_by": gate_bound_by,
         "library_ms": None,
-    }]}), flush=True)
+    }, *gate_rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
 

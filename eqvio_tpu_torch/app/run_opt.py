@@ -60,6 +60,7 @@ from ..graph import GraphStep, broadcast_lanes, select
 from ..io import LoopTimer, VIOWriter, load_config, safe_get, settings_from_config, tracker_config_from_config
 from ..io.timing import Tracer, idle_by_host, write_trace
 from ..io.writer import rotation_to_quaternion
+from ..kernels.ransac import ransac_mask
 from ..runtime import check_finite, configure_runtime, debug_nans
 from ..stamps import (FRAME_BEGIN, FRAME_END, LIFECYCLE_END, PROPAGATION_END, STAMPS, TRACKER_END, VISION_END,
                       host_ns, stamp, stamping)
@@ -244,7 +245,9 @@ def run_dataset(
     (``decoder``) and its seconds per frame (``decode_ms_per_frame``).
     The fused path's summary also splits ``setup_s`` into ``setup_parts_s``
     (``runner``, ``capture``, ``timing_replays``, ``enqueue_probe``,
-    ``cost_count``).  ``timing`` (fused path) stamps each frame's stages on
+    ``cost_count``); on the card it adds ``ransac_kernels_per_step``, the
+    RANSAC gate kernels the captured frame step holds (1 with the gate on,
+    0 with it off).  ``timing`` (fused path) stamps each frame's stages on
     the device for ``timing.csv`` and ``device_sections_ms``; ``trace``
     (fused path) stamps them too and adds the ``trace`` block: every
     frame's stamps and the host spans on the profiler's clock, and the
@@ -842,6 +845,7 @@ def _run_fused(server, state, tracker, tcfg, settings, camera, writer, timing, i
     device_ms_per_frame = enqueue_ms_per_frame = step_cost = None
     profiled: dict = {}
     rate_mark = [time.perf_counter()]
+    gates_captured = ransac_mask.captured  # the gate kernels the capture records, read at the end
 
     fetchq: queue.Queue = queue.Queue()
     fetch_errors: list = []
@@ -1094,6 +1098,7 @@ def _run_fused(server, state, tracker, tcfg, settings, camera, writer, timing, i
     if runner is not None and runner.step.graph is not None:
         summary["graph"] = {"capture_s": runner.step.capture_s, "pool_bytes": runner.step.pool_bytes,
                             "replays": runner.step.replays, "timing_replays": timing_replays}
+        summary["ransac_kernels_per_step"] = ransac_mask.captured - gates_captured  # one capture a pass
     if device_ms_per_frame is not None:
         summary["device_ms_per_frame"] = round(device_ms_per_frame, 3)
     if step_cost is not None:

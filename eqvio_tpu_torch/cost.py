@@ -13,8 +13,11 @@ so :func:`count` runs the step once, eagerly, under a
   of a reduction; the QR, Cholesky, LU and triangular solves by their
   textbook counts; ``max_pool2d`` one comparison per window element; the
   KLT op (``eqvio_tpu_torch::klt_track_pyramid``) by
-  :func:`kernels.klt.klt_work`; copies, views, indexing, sorts and the
-  clock stamps (``eqvio_tpu_torch::frame_stamp``) none.
+  :func:`kernels.klt.klt_work` and the RANSAC gate's op
+  (``eqvio_tpu_torch::ransac_epipolar_mask``) by
+  :func:`kernels.ransac.ransac_work`, the count of its plain version;
+  copies, views, indexing, sorts and the clock stamps
+  (``eqvio_tpu_torch::frame_stamp``) none.
 - bytes: every op's input and output tensors, each read or written once
   (XLA's "bytes accessed"); views and stamps move none, and a broadcast (stride-0)
   dim is counted once.  On the card each op is a kernel of its own, in the
@@ -90,6 +93,11 @@ def op_flops(func, args, kwargs, out) -> float:
         shapes = [tuple(t.shape[-2:]) for t in pyr]
         lanes = math.prod(positions.shape[:-2])
         return float(klt_work(positions.shape[-2], shapes, win, iters, lanes)[1])
+    if name == "ransac_epipolar_mask":
+        from .kernels.ransac import ransac_work
+
+        prev, hypotheses = args[0], args[6]
+        return float(ransac_work(hypotheses, prev.shape[-2], math.prod(prev.shape[:-2]))[1])
     if name in ("mv", "addmv"):
         mat = args[1] if name == "addmv" else args[0]
         return 2.0 * mat.numel()

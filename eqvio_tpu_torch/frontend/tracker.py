@@ -21,12 +21,12 @@ from typing import NamedTuple
 
 import torch
 
+from ..kernels import ransac as ransac_kernel
 from ..stamps import GATE_BEGIN, GATE_END, stamp
 from .detector import detect_features, equalize_histogram
 from .klt import track_features
-from .prng import fold_in, prng_key
+from .prng import prng_key
 from .pyramid import build_pyramid, pyramid_shapes
-from .ransac import ransac_epipolar_mask
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,9 +97,9 @@ def tracker_step(
     )
     stamp(GATE_BEGIN)
     if config.ransac_inlier_threshold > 0:
-        key = fold_in(prng_key(ransac_seed(), device), state.next_id)
-        tracked = ransac_epipolar_mask(
-            state.positions, new_pos, tracked, key,
+        # one launch on the card; the plain gate (frontend/ransac.py) on the CPU
+        tracked = ransac_kernel.ransac_mask(
+            state.positions, new_pos, tracked, prng_key(ransac_seed(), device), state.next_id,
             threshold=config.ransac_inlier_threshold,
             hypotheses=config.ransac_hypotheses,
             min_inliers=config.ransac_min_inliers,

@@ -4,7 +4,8 @@ counterpart of XLA's cost analysis, on the CPU.
 - Hand counts: a matrix product (``2 m n k`` operations, every operand's
   bytes once), an elementwise chain (one per output element), a reduction
   (one per input element), a broadcast operand counted once, a view none,
-  the QR by its textbook count and the KLT op by ``klt_work``.
+  the QR by its textbook count, the KLT op by ``klt_work`` and the RANSAC
+  gate's op by ``ransac_work``, which equals the plain gate's count.
 - The B-lane fused frame step counts B times one lane's operations within 1%.
 - The fused summary carries ``flops_per_frame``, ``hbm_bytes_per_frame``,
   ``achieved_gflops`` and ``achieved_hbm_gbps``; the simulation runner has
@@ -27,9 +28,13 @@ from eqvio_tpu_torch import cost
 from eqvio_tpu_torch import filter as TF
 from eqvio_tpu_torch import runner as SR
 from eqvio_tpu_torch.data import SyntheticASLReader
+from eqvio_tpu_torch.frontend import prng
+from eqvio_tpu_torch.frontend import ransac as plain_ransac
 from eqvio_tpu_torch.graph import broadcast_lanes
 from eqvio_tpu_torch.io import bench_config
 from eqvio_tpu_torch.kernels import klt as K
+from eqvio_tpu_torch.kernels import ransac as RK
+from eqvio_tpu_torch.kernels.ransac_bench import two_view
 from tests.test_torch_run_opt import one_torch_thread  # noqa: F401 (autouse fixture)
 
 F64 = torch.float64
@@ -75,6 +80,25 @@ def test_klt_op_counts_klt_work():
     vm = cost.count(lambda: torch.func.vmap(lambda a, b, p: K.klt_track_pyramid([a, b], [a, b], p, p, 9, 4))(
         *pyr, pos))
     assert vm["flops"] == c["flops"]
+
+
+@pytest.mark.parametrize("hypotheses,n", [(20, 40), (34, 40), (64, 30), (16, 8), (5, 100)])
+def test_ransac_op_counts_ransac_work(hypotheses, n):
+    """``ransac_work`` is what the plain gate (``fold_in`` and
+    ``frontend.ransac``'s function) counts op by op, operations and bytes;
+    the op counts as one op of its operations, and under vmap as many times
+    as it has lanes."""
+    prev, curr, mask = (torch.tensor(a) for a in two_view(0, n=n))
+    key, nid = prng.prng_key(7, "cpu"), torch.tensor(17)
+    ref = cost.count(lambda: plain_ransac.ransac_epipolar_mask(prev, curr, mask, prng.fold_in(key, nid), 0.9,
+                                                               hypotheses, 8, 8))
+    assert RK.ransac_work(hypotheses, n) == (ref["bytes accessed"], ref["flops"])
+    op = cost.count(lambda: RK.ransac_mask(prev, curr, mask, key, nid, 0.9, hypotheses))
+    assert op["flops"] == ref["flops"] and op["ops"] == 1
+    gate = lambda p, c, m, i: RK.ransac_mask(p, c, m, key, i, 0.9, hypotheses)  # noqa: E731
+    batch = [t.expand(3, *t.shape).contiguous() for t in (prev, curr, mask, nid)]
+    lanes = cost.count(lambda: torch.func.vmap(gate)(*batch))
+    assert lanes["flops"] == 3 * ref["flops"] and RK.ransac_work(hypotheses, n, 3)[1] == lanes["flops"]
 
 
 @pytest.fixture(scope="module")

@@ -8,17 +8,21 @@ JAX):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
 
 from eqvio_tpu_torch.app import run_opt as R
-from eqvio_tpu_torch.data import SyntheticASLReader, noised_lanes, racing_proxy, shifted_texture_pair
-from eqvio_tpu_torch.frontend import build_pyramid, tracker
+from eqvio_tpu_torch.data import SyntheticASLReader, mh03_proxy, noised_lanes, racing_proxy, shifted_texture_pair
+from eqvio_tpu_torch.frontend import build_pyramid, prng, tracker
 from eqvio_tpu_torch.graph import WARMUP_STEPS, broadcast_lanes
-from eqvio_tpu_torch.io import bench_config, racing_proxy_config, template_config
+from eqvio_tpu_torch.io import bench_config, load_config, mh03_proxy_config, racing_proxy_config, template_config
 from eqvio_tpu_torch.kernels import klt as K
 from eqvio_tpu_torch.kernels import klt_bench as B
+from eqvio_tpu_torch.kernels import ransac as RK
+from eqvio_tpu_torch.kernels import ransac_bench as RB
 
 WIN, ITERS, LEVELS = 21, 8, 4
 
@@ -135,6 +139,140 @@ def test_klt_wrapper_raises_instead_of_falling_back(cuda_device):
         K.klt_track_pyramid([p.cpu() for p in pyr0], pyr1, pos, pos, WIN, ITERS)
     with pytest.raises(ValueError):
         K.klt_track_pyramid(pyr0, pyr1, pos, pos, 33, ITERS)  # 33 * 33 threads > 1024
+
+
+def _hold_gate(label, inputs, threshold, hypotheses, min_inliers) -> dict:
+    """The gate kernel on the card, input by input: bit for bit its numpy
+    float32 mirror (``kernels/ransac_bench.py:kernel_mirror``), one launch
+    a call, and against the plain version equal masks, or a near tie
+    (``ransac_bench.near_tie``).  Prints and returns the near-tie frames by
+    kind."""
+    ties = {}
+    for i, g in enumerate(inputs):
+        before = RK.ransac_mask.launches
+        got = RK.ransac_mask(*g, threshold, hypotheses, 8, min_inliers)
+        torch.cuda.synchronize()
+        assert RK.ransac_mask.launches == before + 1
+        mirror = RB.kernel_mirror(g, threshold, hypotheses, 8, min_inliers)
+        assert torch.equal(got.cpu(), mirror), f"{label}, input {i}: kernel {got.int().tolist()}, mirror " \
+                                               f"{mirror.int().tolist()}"
+        want = RK.ransac_mask_plain(*g, threshold, hypotheses, 8, min_inliers)
+        if not torch.equal(got, want):
+            why = RB.near_tie(got, g, threshold, hypotheses, min_inliers)
+            assert why is not None, f"{label}, input {i}: kernel {got.int().tolist()}, plain {want.int().tolist()}"
+            ties[why] = ties.get(why, 0) + 1
+    print(f"{label}: {len(inputs)} inputs, masks equal on {len(inputs) - sum(ties.values())}, near ties {ties}")
+    return ties
+
+
+def _proxy_gate_inputs(scene: str, frames: int):
+    """The gate's inputs over the first ``frames`` frames of a proxy scene,
+    tracked on the card by its benchmark configuration's tracker: MH_03
+    with the EuRoC gate (34 hypotheses, 1.04 px, 30 inliers), racing with
+    the UZH-FPV gate (20 hypotheses, 0.446 px, 37 inliers)."""
+    if scene == "mh03":
+        reader, config = mh03_proxy(frames / 20.0 + 0.5), mh03_proxy_config()
+    else:
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        reader, config = racing_proxy(frames / 30.0 + 0.5), load_config(os.path.join(repo, "configs",
+                                                                                    "config_UZHFPV.yaml"))
+    return RB.gate_inputs(reader, config, frames, "cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", ["mh03", "racing"])
+def test_ransac_kernel_matches_plain_on_proxy_frames(cuda_device, scene):
+    """220 frames of each proxy scene, with the configuration's gate and
+    again with ``min_inliers`` 0, where every frame's refit shows: the
+    kernel's masks equal its mirror's bit for bit, and the plain version's
+    or differ at a near tie (counted and printed)."""
+    inputs, kw = _proxy_gate_inputs(scene, 220)
+    assert len(inputs) == 220 and kw["hypotheses"] == {"mh03": 34, "racing": 20}[scene]
+    assert sum(int(g.mask.sum()) >= 8 for g in inputs) >= 200
+    _hold_gate(f"{scene}, its gate", inputs, kw["threshold"], kw["hypotheses"], kw["min_inliers"])
+    _hold_gate(f"{scene}, min_inliers 0", inputs, kw["threshold"], kw["hypotheses"], 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", range(6))
+def test_ransac_kernel_matches_plain_on_two_views(cuda_device, seed):
+    """The default 64 hypotheses on a scene with a real consensus (0.9 px):
+    the outliers cut, the inliers kept, as the plain version does."""
+    prev, curr, mask = (torch.tensor(a, device=cuda_device) for a in RB.two_view(seed, n=40))
+    g = RB.GateInput(prev, curr, mask, prng.prng_key(7, cuda_device), torch.tensor(seed * 37, device=cuda_device))
+    assert not _hold_gate(f"two views, seed {seed}", [g], 0.9, 64, 8)
+    got = RK.ransac_mask(*g, 0.9, 64, 8, 8)
+    assert got[5:-3].all() and int(got[:5].sum()) <= 2 and not got[-3:].any()
+
+
+@pytest.mark.cuda
+def test_ransac_kernel_edge_cases(cuda_device):
+    """Fewer than 8 tracked and all masked give the mask back; a refit
+    below ``min_inliers`` keeps the mask; 45 tracks (not a multiple of a
+    warp), 300 (more than a block's threads) and 64 x 200 (past 48 kB of
+    shared memory) equal the plain version."""
+    key, nid = prng.prng_key(7, cuda_device), torch.tensor(5, device=cuda_device)
+    prev, curr, mask = (torch.tensor(a, device=cuda_device) for a in RB.two_view(3, n=45))
+    few = mask & (torch.arange(45, device=cuda_device) < 7)
+    cases = [("fewer than 8 tracked", (prev, curr, few, key, nid), 64, 8, few),
+             ("all masked", (prev, curr, torch.zeros_like(mask), key, nid), 64, 8, torch.zeros_like(mask)),
+             ("refit below min_inliers", (prev, curr, mask, key, nid), 64, 43, mask),
+             ("45 tracks", (prev, curr, mask, key, nid), 64, 8, None)]
+    for n, k in ((300, 16), (200, 64)):
+        p, c, m = (torch.tensor(a, device=cuda_device) for a in RB.two_view(n, n=n))
+        cases.append((f"{k} x {n}", (p, c, m, key, nid), k, 8, None))
+    assert RK.smem_bytes(200, 64) > 48 * 1024
+    for label, g, k, min_inliers, expect in cases:
+        assert not _hold_gate(label, [RB.GateInput(*g)], 0.9, k, min_inliers)
+        if expect is not None:
+            assert torch.equal(RK.ransac_mask(*g, 0.9, k, 8, min_inliers), expect), label
+
+
+@pytest.mark.cuda
+def test_ransac_kernel_lanes_equal_single_lanes(cuda_device):
+    """Eight lanes in one launch, under vmap with a shared key and called
+    with a key per lane: every lane bitwise its own single-lane launch."""
+    views = [RB.two_view(b, n=40) for b in range(8)]
+    prev, curr, mask = (torch.tensor(np.stack(a), device=cuda_device) for a in zip(*views))
+    ids = torch.arange(8, device=cuda_device) * 11
+    key = prng.prng_key(7, cuda_device)
+    for min_inliers in (8, 0):
+        gate = lambda p, c, m, i: RK.ransac_mask(p, c, m, key, i, 0.9, 34, 8, min_inliers)  # noqa: E731
+        before = RK.ransac_mask.launches
+        lanes = torch.func.vmap(gate)(prev, curr, mask, ids)
+        direct = RK.ransac_mask(prev, curr, mask, key.expand(8, 2).contiguous(), ids, 0.9, 34, 8, min_inliers)
+        torch.cuda.synchronize()
+        assert RK.ransac_mask.launches == before + 2
+        for b in range(8):
+            one = gate(prev[b], curr[b], mask[b], ids[b])
+            assert torch.equal(lanes[b], one) and torch.equal(direct[b], one), f"lane {b}"
+        assert RK.ransac_mask.launches == before + 10
+
+
+@pytest.mark.cuda
+def test_ransac_wrapper_raises_instead_of_falling_back(cuda_device):
+    prev, curr, mask = (torch.tensor(a, device=cuda_device) for a in RB.two_view(0, n=40))
+    key, nid = prng.prng_key(7, cuda_device), torch.tensor(0, device=cuda_device)
+    with pytest.raises(ValueError):
+        RK.ransac_mask(prev.double(), curr.double(), mask, key, nid)
+    with pytest.raises(ValueError):
+        RK.ransac_mask(prev, curr, mask.cpu(), key, nid)
+    with pytest.raises(ValueError):
+        RK.ransac_mask(prev, curr, mask, key, nid, hypotheses=0)
+    with pytest.raises(ValueError):
+        RK.ransac_mask(prev, curr, mask, key, nid, hypotheses=2000)  # 2000 x 40 draws: past a block's shared memory
+
+
+@pytest.mark.cuda
+def test_fused_step_holds_one_gate_kernel(cuda_device):
+    """The captured frame step holds one gate kernel with the gate on (the
+    benchmark config's 64 hypotheses) and none with it off."""
+    reader = SyntheticASLReader(end_time=2.0, width=320, height=240, frame_freq=10.0, num_points=300)
+    off = bench_config()
+    off["GIFT"]["ransacParams"]["inlierThreshold"] = 0.0
+    for config, want in ((bench_config(), 1), (off, 0)):
+        _, s = R.run_dataset(reader, config, device="cuda", chunk_size=8, limit_frames=16)
+        assert s["ransac_kernels_per_step"] == want
 
 
 @pytest.mark.cuda
@@ -412,7 +550,7 @@ def test_batch_runner_lanes_match_single_sequences(cuda_device):
 @pytest.mark.cuda
 def test_batch_graph_launches_one_klt_per_frame(cuda_device):
     """Under the profiler, each replay of the batched graph runs one
-    ``klt_pyramid_kernel`` for all lanes."""
+    ``klt_pyramid_kernel`` and one ``ransac_gate_kernel`` for all lanes."""
     from torch.profiler import ProfilerActivity, profile
 
     _, _, imgs, meta, batch = _batch_case(cuda_device, 8)
@@ -426,6 +564,7 @@ def test_batch_graph_launches_one_klt_per_frame(cuda_device):
     launches = [ev.name for ev in prof.events() if ev.name == "cudaGraphLaunch"]
     assert len(launches) == 4
     assert sum("klt_pyramid_kernel" in n for n in names) == 4
+    assert sum("ransac_gate_kernel" in n for n in names) == 4
 
 
 @pytest.mark.cuda

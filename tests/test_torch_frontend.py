@@ -1,6 +1,7 @@
 """Parity of the port's front end with ``eqvio_tpu``: the threefry stream,
 pyramid, Shi-Tomasi score, detection (with planted score ties), the RANSAC
-gate's eigenvector solver and mask, and five tracker frames with the gate on.
+gate's eigenvector solver and mask (the plain function and the tracker's
+op), and five tracker frames with the gate on.
 """
 
 import jax
@@ -20,6 +21,8 @@ from eqvio_tpu_torch.frontend import prng
 from eqvio_tpu_torch.frontend import ransac as transac
 from eqvio_tpu_torch.frontend import tracker as ttracker
 from eqvio_tpu_torch.frontend.pyramid import build_pyramid
+from eqvio_tpu_torch.kernels import ransac as ransac_kernel
+from eqvio_tpu_torch.kernels.ransac_bench import two_view as _two_view
 
 H, W = 120, 160
 
@@ -120,20 +123,6 @@ def test_smallest_eigvec_matches_jax(gap):
         assert align.min() > 0.999
 
 
-def _two_view(seed, n=30, n_out=5):
-    rng = np.random.default_rng(seed)
-    P = rng.uniform([-2, -1.5, 4], [2, 1.5, 8], size=(n, 3))
-    f, c = 300.0, np.array([160.0, 120.0])
-    prev = P[:, :2] / P[:, 2:] * f + c
-    R = np.array([[np.cos(0.05), 0, np.sin(0.05)], [0, 1, 0], [-np.sin(0.05), 0, np.cos(0.05)]])
-    P2 = P @ R.T + [0.2, 0.05, 0.1]
-    curr = P2[:, :2] / P2[:, 2:] * f + c + rng.normal(scale=0.2, size=(n, 2))
-    curr[:n_out] += rng.uniform(-15, 15, size=(n_out, 2))
-    mask = np.ones(n, bool)
-    mask[-3:] = False
-    return prev.astype(np.float32), curr.astype(np.float32), mask
-
-
 @pytest.mark.parametrize("seed,next_id", [(0, 0), (1, 17), (2, 250)])
 def test_ransac_mask_matches_jax(seed, next_id):
     prev, curr, mask = _two_view(seed)
@@ -144,6 +133,10 @@ def test_ransac_mask_matches_jax(seed, next_id):
     mt = transac.ransac_epipolar_mask(torch.tensor(prev), torch.tensor(curr), torch.tensor(mask), key_t,
                                       threshold=0.9, hypotheses=64)
     np.testing.assert_array_equal(mt.numpy(), np.asarray(mj))
+    # the tracker's op (its CPU implementation) folds the counter in itself
+    mo = ransac_kernel.ransac_mask(torch.tensor(prev), torch.tensor(curr), torch.tensor(mask), prng.prng_key(7, "cpu"),
+                                   torch.tensor(next_id), threshold=0.9, hypotheses=64)
+    np.testing.assert_array_equal(mo.numpy(), np.asarray(mj))
     assert mt.numpy()[5:-3].all() and mt.numpy()[:5].sum() <= 2  # inliers kept, outliers cut
 
 
