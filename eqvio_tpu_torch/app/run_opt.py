@@ -813,6 +813,12 @@ def _run_fused(server, state, tracker, tcfg, settings, camera, writer, timing, i
     each frame's stamps on the host clock and the host time its row was in
     hand, the spans, the clock offset, and the device's idle seconds between
     frames by the host span that covered each gap (:func:`idle_by_host`).
+
+    The tracer's counters, counted on the host from the packed IMU windows
+    and reported as the summary's ``counters``: ``frames``,
+    ``riccati_steps`` (the Riccati steps the frame step runs, zero-dt pads
+    included: :func:`filter.riccati_steps` a frame) and ``imu_samples_live``
+    (the window entries with dt > 0).
     """
     suite = settings.suite
     C, K = chunk_size, imu_window
@@ -984,6 +990,9 @@ def _run_fused(server, state, tracker, tcfg, settings, camera, writer, timing, i
                     imgs_np[i] = im
                     _pack_meta(meta_np[i], window, stamp)
                     stamps[i] = stamp
+                tr.count("frames", n)
+                tr.count("riccati_steps", n * F.riccati_steps(settings, K))
+                tr.count("imu_samples_live", np.count_nonzero(meta_np[:n, 7 * K:8 * K] > 0))
             with tr.span("upload", k, frames):
                 dev_imgs.copy_(host_imgs[slot], non_blocking=cuda)
                 dev_meta.copy_(host_meta[slot], non_blocking=cuda)
@@ -1073,6 +1082,7 @@ def _run_fused(server, state, tracker, tcfg, settings, camera, writer, timing, i
                        np.reshape(feature_ids, (-1, N)))
     summary["frames"] = prior + frames  # with the frames before a resumed checkpoint
     summary.update(_decode_summary(server))
+    summary["counters"] = dict(tr.counters)
     if tr.counts["checkpoint"]:
         summary["checkpoint"] = {"saves": tr.counts["checkpoint"],
                                  "ms_per_save": round(secs["checkpoint"] * 1e3 / tr.counts["checkpoint"], 3)}

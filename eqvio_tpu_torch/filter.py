@@ -459,6 +459,13 @@ def predict_state(state: EqFState, imu_window: IMU, dts: torch.Tensor) -> VIOSta
     return xi
 
 
+def riccati_steps(settings: Settings, window: int) -> int:
+    """The Riccati steps :func:`propagate_window` runs over a window of
+    ``window`` entries: one on the mean IMU with fast Riccati, else one per
+    entry, zero-dt pads included."""
+    return 1 if settings.fast_riccati else window
+
+
 def propagate_window(
     state: EqFState,
     imu_window: IMU,

@@ -6,7 +6,8 @@ GPU a section's time covers only the host's enqueue unless the section ends
 in a synchronising call.
 
 :class:`Tracer` (the fused loop): named host spans on the profiler's clock,
-their totals always and the spans themselves when a run is traced;
+their totals always and the spans themselves when a run is traced, and
+named counters;
 :func:`idle_by_host` labels the device's gaps between frames, whose ends the
 frame step stamps (:mod:`eqvio_tpu_torch.stamps`), by the host span
 that covers each; :func:`write_trace` writes a traced run's block.
@@ -57,21 +58,24 @@ class Tracer:
     stamps its records with (:data:`stamps.host_ns`).
 
     Every span adds its seconds to its name's total (:attr:`seconds`) and one
-    to its count (:attr:`counts`).  With ``keep`` each span is also kept, in
-    memory, as ``(name, start_ns, end_ns, chunk, first frame, end frame,
-    parent, thread)``: the parent is the span open around it on its thread
-    when it began, the thread ``"main"`` (the one that made the tracer) or
-    the thread's name.  While a profiler records, a span whose name is in
-    ``annotate`` also opens ``record_function("eqvio.<name>")``, so a trace
-    shows those phases on its host timeline.  Name there only spans that
-    enqueue no device work: the profiler mirrors an annotation around device
-    work onto the device's timeline as a range of its own, which a reader of
-    the trace may take for device time.
+    to its count (:attr:`counts`); :meth:`count` adds to a named counter
+    (:attr:`counters`), for quantities the host knows without a span.  With
+    ``keep`` each span is also kept, in memory, as ``(name, start_ns,
+    end_ns, chunk, first frame, end frame, parent, thread)``: the parent is
+    the span open around it on its thread when it began, the thread
+    ``"main"`` (the one that made the tracer) or the thread's name.  While a
+    profiler records, a span whose name is in ``annotate`` also opens
+    ``record_function("eqvio.<name>")``, so a trace shows those phases on
+    its host timeline.  Name there only spans that enqueue no device work:
+    the profiler mirrors an annotation around device work onto the device's
+    timeline as a range of its own, which a reader of the trace may take for
+    device time.
     """
 
     def __init__(self, keep: bool = False, annotate=()):
         self.seconds: dict[str, float] = defaultdict(float)
         self.counts: dict[str, int] = defaultdict(int)
+        self.counters: dict[str, int] = defaultdict(int)
         self.events: list | None = [] if keep else None
         self._open = threading.local()  # the names of each thread's open spans, while spans are kept
         self._main = threading.get_ident()  # the thread that made the tracer: the loop's main thread
@@ -81,6 +85,10 @@ class Tracer:
         """A context manager timing the block as the span ``name`` of
         ``chunk`` and the frames ``[frames[0], frames[1])``."""
         return _Span(self, name, chunk, frames)
+
+    def count(self, name: str, n: int = 1) -> None:
+        """Add ``n`` to the counter ``name``."""
+        self.counters[name] += int(n)
 
     def add(self, name: str, start_ns: int, end_ns: int, chunk: int = -1, frames: tuple[int, int] = (-1, -1),
             parent: str | None = None) -> None:

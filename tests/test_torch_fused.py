@@ -410,10 +410,10 @@ def test_profile_dir_writes_a_trace(tmp_path):
 
 
 # the fused path's summary on the CPU without timing or trace, before the set-up's parts
-FUSED_KEYS = {"achieved_gflops", "achieved_hbm_gbps", "decode_ms_per_frame", "decoder", "device_ms_per_frame",
-              "dispatch_ms_per_frame", "feature_ids", "fetch_ms_per_frame", "final_position", "flops_per_frame",
-              "fps", "frames", "hbm_bytes_per_frame", "healthy", "host_ms_per_frame", "landmarks", "nan",
-              "positions", "searched_frame_fraction", "setup_s", "sigma_pd", "stamps", "write_ms_per_frame"}
+FUSED_KEYS = {"achieved_gflops", "achieved_hbm_gbps", "counters", "decode_ms_per_frame", "decoder",
+              "device_ms_per_frame", "dispatch_ms_per_frame", "feature_ids", "fetch_ms_per_frame", "final_position",
+              "flops_per_frame", "fps", "frames", "hbm_bytes_per_frame", "healthy", "host_ms_per_frame", "landmarks",
+              "nan", "positions", "searched_frame_fraction", "setup_s", "sigma_pd", "stamps", "write_ms_per_frame"}
 SETUP_PARTS = {"runner", "capture", "timing_replays", "enqueue_probe", "cost_count"}
 
 
